@@ -4,13 +4,15 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with
 nvcc (sm_90a), holds each kernel to its plain PyTorch version on the card,
-serves full-width olmo-1b (random weights from a seed) through the port's
-``ServingEngine`` under the sync, async and worker policies, checks that
-the main path went through the kernels (launch counters) and that its
-crossing tapes obey the bridge law, and times each kernel, its plain
-version and the PyTorch call computing the same function.  It prints the
-card's name and power limit, one ``{"kernels": [...]}`` line, and as its
-last line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
+serves full-width olmo-1b and then full-width xlstm-1.3b (random weights
+from a seed) through the port's ``ServingEngine`` under the sync, async and
+worker policies, checks that each path went through its kernels (launch
+counters: flash + paged for olmo-1b, the chunked mLSTM scan for
+xlstm-1.3b) and that its crossing tapes obey the bridge law, profiles a
+decode step of each, and times each kernel, its plain version and the
+PyTorch call computing the same function, where there is one.  It prints
+the card's name and power limit, one ``{"kernels": [...]}`` line, and as
+its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the repository's ``src`` beside it, it exits non-zero and prints
 no result.
 """
@@ -25,11 +27,17 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BF16_TOL = 3e-2
-#: the card's published peaks (H100 SXM, dense): bf16 tensor cores, HBM3
+#: the mLSTM scan's tolerances, tests/test_kernels.py's: rtol 1e-5 with atol
+#: 5e-4 (f32) or 1e-1 (bf16), mean error below 1e-5 (f32) or 1e-3 (bf16)
+MLSTM_TOL = {torch.float32: (5e-4, 1e-5), torch.bfloat16: (1e-1, 1e-3)}
+#: the card's published peaks (H100 SXM, dense): bf16 tensor cores, f32 on
+#: the CUDA cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 #: where every phase runs (the card; a CPU rehearsal may rebind it)
@@ -63,10 +71,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time the card could take: ops over the bf16 peak or bytes over
-    the memory rate, whichever is larger (ms, which bounds it)."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float,
+          peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    """Least time the card could take: ops over the peak rate of their type
+    (bf16 unless given) or bytes over the memory rate, whichever is larger
+    (ms, which bounds it)."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
@@ -172,47 +182,212 @@ def phase_paged(gen) -> float:
     return worst
 
 
+def _mlstm_inputs(gen, b, s, h, dk, dv, dtype, initial_state):
+    """tests/test_kernels.py's draw: q pre-scaled, k and v normal (rounded
+    to ``dtype``), log_i normal x 2, log_f log_sigmoid(normal + 1), on the
+    card; with ``initial_state`` a normal (C, n, m) in f32."""
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    q, k, v = ((rn(b, s, h, dk) / math.sqrt(dk)).to(dtype),
+               rn(b, s, h, dk).to(dtype), rn(b, s, h, dv).to(dtype))
+    li, lf = rn(b, s, h) * 2.0, F.logsigmoid(rn(b, s, h) + 1.0)
+    state = ((rn(b, h, dk, dv), rn(b, h, dk), rn(b, h))
+             if initial_state else None)
+    return (q, k, v, li, lf), state
+
+
+def phase_mlstm(gen) -> float:
+    """The mLSTM kernel against its plain version on y and the final
+    (C, n, m), at tests/test_kernels.py's tolerances.  Where the plain
+    version itself is further than that from an f64 evaluation of the same
+    algorithm (rows whose denominator max(|q.n|, e^-m) cancels: f32 cannot
+    resolve them in any order), the kernel may differ from it by twice the
+    plain version's own error, i.e. be as accurate; such elements are
+    counted.  Returns the worst f32 max-abs error."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    full = dict(b=1, h=4, dk=512, dv=1024, chunk=256)
+    cases = [dict(full, s=512, dtype=f32, init=False),      # the model's shape
+             dict(full, s=300, dtype=f32, init=False),      # ragged tail
+             dict(full, s=512, dtype=f32, init=True),       # carried state
+             dict(b=1, s=100, h=4, dk=64, dv=128, chunk=32, dtype=f32,
+                  init=False),                              # test_kernels.py
+             dict(b=1, s=100, h=4, dk=64, dv=128, chunk=32, dtype=bf16,
+                  init=False)]
+    worst = 0.0
+    for c in cases:
+        args, state = _mlstm_inputs(gen, c["b"], c["s"], c["h"], c["dk"],
+                                    c["dv"], c["dtype"], c["init"])
+        e, report = _mlstm_compare(args, dict(chunk=c["chunk"],
+                                              initial_state=state), c)
+        if c["dtype"] == f32:
+            worst = max(worst, e)
+        print(f"mlstm {c}: {report}")
+    return worst
+
+
+def _mlstm_compare(args, kw, where) -> tuple:
+    """The mLSTM kernel against its plain version on one input set, at
+    phase_mlstm's tolerance (with its f64-derived slack); fails the run on
+    a disagreement.  Returns (worst max-abs error, report)."""
+    from repro_torch.kernels.mlstm_scan import ops
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_chunked_ref
+    y, st = ops.mlstm_scan(*args, **kw)
+    torch.cuda.synchronize()
+    py, pst = mlstm_chunked_ref(*args, **kw)
+    ry, rst = mlstm_chunked_ref(*args, **kw, dtype=torch.float64)
+    worst, report = 0.0, []
+    for name, got, plain, exact in zip(("y", "C", "n", "m"), (y, *st),
+                                       (py, *pst), (ry, *rst)):
+        atol, mean_bound = MLSTM_TOL[got.dtype]
+        got, plain = got.double(), plain.double()
+        err = (got - plain).abs()
+        tol = atol + 1e-5 * plain.abs()
+        slack = 2.0 * (plain - exact).abs()
+        bad = int((err > tol + slack).sum())
+        used = int(((err > tol) & (err <= tol + slack)).sum())
+        mean = float(err.mean())
+        e = float(err.max())
+        report.append(f"{name} max_abs_err {e:.3g} mean {mean:.3g} "
+                      f"(plain vs f64 {float((plain - exact).abs().max()):.3g}"
+                      f", {used} within its slack)")
+        check(math.isfinite(e) and bad == 0
+              and (name != "y" or mean < mean_bound),
+              f"mlstm kernel disagrees with its plain version at {where}: "
+              f"{name} {bad} elements out of tolerance, max {e}, mean {mean}")
+        worst = max(worst, e)
+    return worst, "; ".join(report)
+
+
+def _prefill_and_decode(model, prompt_len: int) -> torch.Tensor:
+    """A ``prompt_len``-token prefill and four teacher-forced decode
+    steps; all their logits, flattened, in f32."""
+    prompt = torch.arange(1, prompt_len + 1, device=DEVICE,
+                          dtype=torch.int32)[None]
+    logits, cache, idx = model.prefill(prompt, prompt_len + 28)
+    out = [logits]
+    for i, t in enumerate((5, 6, 7, 8)):
+        out.append(model.decode_step(
+            cache, torch.tensor([[t]], device=DEVICE, dtype=torch.int32),
+            torch.tensor([idx + i], device=DEVICE, dtype=torch.int32))[0])
+    return torch.cat([o.float().reshape(-1) for o in out])
+
+
+def _rel(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
 def phase_model_check(model) -> None:
-    """The model with its kernels against the same model with the kernels'
+    """olmo-1b with its kernels against the same model with the kernels'
     plain versions swapped in, on the card: a 100-token prefill and four
     teacher-forced decode steps, logits within 2e-2 relative (L2)."""
     from repro_torch.models import layers, transformer
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    prompt = torch.arange(1, 101, device=DEVICE, dtype=torch.int32)[None]
-    steps = [torch.tensor([[t]], device=DEVICE, dtype=torch.int32)
-             for t in (5, 6, 7, 8)]
-
-    def run():
-        logits, cache, idx = model.prefill(prompt, 128)
-        out = [logits]
-        for i, tok in enumerate(steps):
-            out.append(model.decode_step(
-                cache, tok, torch.tensor([idx + i], device=DEVICE,
-                                         dtype=torch.int32))[0])
-        return torch.cat([o.float().reshape(-1) for o in out])
-
-    kernel = run()
+    kernel = _prefill_and_decode(model, 100)
     core, paged = layers.attention_core, transformer.pa_ops.paged_attention
     layers.attention_core = (lambda q, k, v, *, causal, window=None:
                              flash_attention_ref(q, k, v, causal=causal,
                                                  window=window))
     transformer.pa_ops.paged_attention = paged_attention_ref
     try:
-        plain = run()
+        plain = _prefill_and_decode(model, 100)
     finally:
         layers.attention_core, transformer.pa_ops.paged_attention = core, paged
-    rel = ((kernel - plain).norm() / plain.norm()).item()
-    print(f"model check: kernels vs plain versions, logits rel L2 {rel:.3g}; "
+    rel = _rel(kernel, plain)
+    print(f"model check ({model.cfg.name}, 100-token prefill + 4 decode "
+          f"steps): kernels vs plain versions, logits rel L2 {rel:.3g}; "
           f"finite {bool(torch.isfinite(kernel).all())}")
     check(bool(torch.isfinite(kernel).all()) and rel <= 2e-2,
           f"model with kernels disagrees with plain versions: {rel}")
 
 
-def phase_main(model) -> dict:
-    from repro_torch.core.policy import SchedulingPolicy
+def phase_xlstm_model_check(model) -> None:
+    """xlstm-1.3b with the mLSTM kernel against the same model with the
+    kernel's plain version swapped in: a 300-token prefill (two chunks)
+    and four teacher-forced decode steps.
+
+    The random-weight 48-block stack amplifies any f32 rounding difference
+    block by block (two orderings of the plain version itself, chunk 128
+    and 256, end far apart at the logits), so the logits cannot hold the
+    kernel to a fixed tolerance.  Instead: (1) on the plain run, every
+    mLSTM block's scan inputs are kept and the kernel is held to the plain
+    version on each, at phase_mlstm's tolerance; (2) end to end, the
+    kernel must move the logits no more than twice as far from the plain
+    run as the plain version at chunk 128 moves them (another f32
+    ordering).  The residual stream's divergence after each block is
+    printed for both pairs; a single block's value is not bounded, as it
+    counts bf16 roundings that happen to flip, which either pair may or
+    may not hit."""
+    from repro_torch.kernels.mlstm_scan import ops
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_chunked_ref
+    from repro_torch.models import model as model_mod
+    block_apply, kernel = model_mod.xlstm_block_apply, ops.mlstm_scan
+
+    def run(scan, inputs=None):
+        resid = []
+
+        def block(*a, **k):
+            out = block_apply(*a, **k)
+            resid.append(out[1].float().clone())
+            return out
+
+        def scan_kept(*a, **k):
+            if inputs is not None:
+                inputs.append((a, k))
+            return scan(*a, **k)
+
+        model_mod.xlstm_block_apply = block
+        if scan is not kernel:
+            ops.mlstm_scan = scan_kept
+        try:
+            logits = _prefill_and_decode(model, 300)
+        finally:
+            model_mod.xlstm_block_apply, ops.mlstm_scan = block_apply, kernel
+        return logits, resid
+
+    inputs = []
+    plain, plain_res = run(mlstm_chunked_ref, inputs)
+    other, other_res = run(lambda *a, chunk, **k: mlstm_chunked_ref(
+        *a, chunk=128, **k))
+    got, got_res = run(kernel)
+    worst = max(_mlstm_compare(a, k, f"mLSTM block {i} of the model")[0]
+                for i, (a, k) in enumerate(inputs))
+    div = [(_rel(g, p), _rel(o, p))
+           for g, o, p in zip(got_res, other_res, plain_res)]
+    n = model.cfg.n_layers
+    moved, floor = _rel(got, plain), _rel(other, plain)
+    print(f"model check ({model.cfg.name}, 300-token prefill + 4 decode "
+          f"steps): kernel vs plain on every mLSTM block's own "
+          f"inputs ({len(inputs)} scans): worst max_abs_err {worst:.3g}; "
+          f"logits rel L2 kernel vs plain {moved:.3g}, plain chunk 128 vs "
+          f"256 {floor:.3g}; finite {bool(torch.isfinite(got).all())}")
+    for step in range(len(div) // n):
+        part = div[step * n:(step + 1) * n]
+        print(f"  residual rel L2 after block (kernel vs plain | plain "
+              f"orderings), {'prefill' if step == 0 else f'decode {step}'}: "
+              + ", ".join(f"{i}: {g:.3g}|{o:.3g}"
+                          for i, (g, o) in enumerate(part) if i % 8 in (0, 7)))
+    check(bool(torch.isfinite(got).all()) and moved <= 2 * floor,
+          f"the kernel moves the logits further ({moved}) than twice "
+          f"another f32 ordering of the plain version does ({floor})")
+
+
+def _counters() -> dict:
+    """Every kernel wrapper of the port, by name (each counts launches)."""
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mlstm_scan import ops as ml
     from repro_torch.kernels.paged_attention import ops as pa
+    return {"flash_attention": fa.flash_attention,
+            "paged_attention": pa.paged_attention,
+            "mlstm_scan": ml.mlstm_scan}
+
+
+def phase_main(model, expected) -> dict:
+    """Serve MAIN's requests under each policy; ``expected(stats, n_req)``
+    gives each kernel's launch count for one run.  Returns the launches of
+    the three runs together, by kernel."""
+    from repro_torch.core.policy import SchedulingPolicy
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.sampler import SamplingParams
     from repro_torch.trace import TraceRecorder, check_tape
@@ -222,7 +397,8 @@ def phase_main(model) -> dict:
     gen = torch.Generator().manual_seed(1)
     prompts = [torch.randint(1, vocab, (n,), generator=gen).tolist()
                for n in MAIN["prompt_lens"]]
-    launches = {"flash_attention": 0, "paged_attention": 0}
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
     for policy in (SchedulingPolicy.SYNC_DRAIN, SchedulingPolicy.ASYNC_OVERLAP,
                    SchedulingPolicy.WORKER_DRAIN):
         engine = ServingEngine(model, max_batch=MAIN["max_batch"],
@@ -252,8 +428,8 @@ def phase_main(model) -> dict:
         for i, p in enumerate(prompts):
             engine.submit(Request(f"r{i}", prompt=p, sampling=SamplingParams(
                 max_new_tokens=MAIN["new_tokens"])))
-        fa.flash_attention.launches = 0
-        pa.paged_attention.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
@@ -264,9 +440,9 @@ def phase_main(model) -> dict:
             engine.close()
             del model.prefill, model.decode_step
         wall = time.perf_counter() - t0
-        n_flash, n_paged = fa.flash_attention.launches, pa.paged_attention.launches
-        launches["flash_attention"] += n_flash
-        launches["paged_attention"] += n_paged
+        counts = {name: fn.launches for name, fn in counters.items()}
+        for name, n in counts.items():
+            launches[name] += n
 
         n_req = len(prompts)
         check(stats["finished"] == n_req, f"{policy.value}: "
@@ -278,20 +454,17 @@ def phase_main(model) -> dict:
             check(all(0 <= t < vocab for t in r.output_tokens),
                   f"{policy.value}: token outside the vocab")
         check(bool(finite), f"{policy.value}: non-finite logits")
-        check(n_flash == n_req * cfg.n_layers,
-              f"{policy.value}: flash launches {n_flash} != prefills "
-              f"{n_req} x {cfg.n_layers}")
-        check(n_paged == stats["steps"] * cfg.n_layers,
-              f"{policy.value}: paged launches {n_paged} != decode steps "
-              f"{stats['steps']} x {cfg.n_layers}")
+        want = expected(stats, n_req)
+        check(counts == want, f"{policy.value}: kernel launches {counts}, "
+                              f"expected {want}")
         report = check_tape(recorder.tape())
         check(report.ok, f"{policy.value}: tape violates the bridge law:\n"
                          f"{report.format()}")
         decode_tokens = stats["total_tokens"] - n_req
         decode_wall = wall - prefill_s[0]
-        print(f"main path {policy.value}: {n_req} requests, "
+        print(f"main path {cfg.name} {policy.value}: {n_req} requests, "
               f"{stats['total_tokens']} tokens, {stats['steps']} decode steps; "
-              f"launches flash {n_flash} paged {n_paged}; tape ok "
+              f"launches {counts}; tape ok "
               f"({recorder.tape().n_crossings()} crossings)")
         print(f"  modelled (virtual clock, {engine.bridge.profile.name} bridge "
               f"profile, CC on): virtual_time_s {stats['virtual_time_s']!r} "
@@ -358,7 +531,8 @@ def phase_profile(model) -> None:
               "time not measured")
         return
     busy = sum(dev_us(e) for e in events)
-    print(f"profile: decode step ({len(MAIN['prompt_lens'])} rows) "
+    print(f"profile {model.cfg.name}: decode step "
+          f"({len(MAIN['prompt_lens'])} rows) "
           f"{plain_us / steps:.1f} us on the host clock without the "
           f"profiler, {wall_us / steps:.1f} us with it; device busy "
           f"{busy / steps:.1f} us per step; idle share "
@@ -368,8 +542,26 @@ def phase_profile(model) -> None:
               f"calls/step  {e.key[:90]}")
 
 
+def mlstm_work(b, s, h, dk, dv, chunk) -> tuple:
+    """Operations and bytes a chunked mLSTM scan from the empty state needs
+    on these shapes (f32 inputs).  Per chunk of L steps and head: the
+    causal scores (2 P dk, P = L(L+1)/2 pairs) and W.V (2 P dv), q.C
+    (2 L dk dv; none in the first chunk, where C is zero), the state update
+    (2 L dk dv), q.n and the n update (2 L dk each).  q, k, v and the
+    gates are read once, y and the final state written once."""
+    flops = 0
+    for c0 in range(0, s, chunk):
+        L = min(chunk, s - c0)
+        pairs = L * (L + 1) // 2
+        flops += 2 * pairs * (dk + dv) + 2 * L * dk * dv + 4 * L * dk
+        if c0:
+            flops += 2 * L * dk * dv
+    nbytes = (b * s * h * (2 * dk + 2 * dv + 2) * 4
+              + b * h * (dk * dv + dk + 1) * 4)
+    return b * h * flops, nbytes
+
+
 def phase_timings(gen, launches: dict, errs: dict) -> list:
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.paged_attention import ops as pa
@@ -433,7 +625,58 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
     print(f"timing paged (B={b} H={h} KV={kv} D={d} page={page} "
           f"lengths={lengths}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
           f"bound {bms:.5f} ms ({by})")
+    del kc, vc
+
+    # mLSTM at the main path's longest prefill: xlstm-1.3b, one 512-token
+    # prompt (two 256-step chunks) from the empty state, f32 as the model
+    # path computes it; no single PyTorch call computes this scan
+    from repro_torch.kernels.mlstm_scan import ops as ml
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_chunked_ref
+    b, s, h, dk, dv, chunk = 1, max(MAIN["prompt_lens"]), 4, 512, 1024, 256
+    args, _ = _mlstm_inputs(gen, b, s, h, dk, dv, torch.float32, False)
+    ms = time_ms(lambda: ml.mlstm_scan(*args, chunk=chunk))
+    plain = time_ms(lambda: mlstm_chunked_ref(*args, chunk=chunk), iters=5)
+    flops, nbytes = mlstm_work(b, s, h, dk, dv, chunk)
+    bms, by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    rows.append(dict(
+        name="mlstm_scan", route="cuda",
+        source="src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
+        replaces="src/repro/kernels/mlstm_scan/mlstm_scan.py:83",
+        launches=launches["mlstm_scan"], max_abs_err=errs["mlstm_scan"],
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None))
+    print(f"timing mlstm (B={b} S={s} H={h} dk={dk} dv={dv} chunk={chunk}, "
+          f"f32): kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.5f} "
+          f"ms ({by}; {flops / 1e9:.3f} GFLOP on the f32 peak, "
+          f"{nbytes / 1e6:.1f} MB)")
+    _kernel_breakdown(lambda: ml.mlstm_scan(*args, chunk=chunk), "mlstm")
     return rows
+
+
+def _kernel_breakdown(fn, label: str, calls: int = 10) -> None:
+    """Device time per call of each kernel ``fn`` launches (torch.profiler
+    over ``calls`` calls after one warm-up)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)), e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = [(us, key) for us, key in rows if us > 0]
+    if not rows:
+        print(f"  {label} per kernel: not measured (no device events)")
+        return
+    def short(key):   # "void (anonymous namespace)::name<T>(...)" -> name
+        key = key.replace("(anonymous namespace)::", "")
+        return key.split("(")[0].split("<")[0].split()[-1]
+
+    print(f"  {label} per kernel, ms per call: " + "; ".join(
+        f"{short(key)} {us / calls / 1e3:.4f}"
+        for us, key in sorted(rows, reverse=True)))
 
 
 def main() -> None:
@@ -445,23 +688,55 @@ def main() -> None:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import Model
+    from repro_torch.models.transformer import block_kind
 
     t_start = time.perf_counter()
     card = phase_card()
     phase_build()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     errs = {"flash_attention": phase_flash(gen),
-            "paged_attention": phase_paged(gen)}
+            "paged_attention": phase_paged(gen),
+            "mlstm_scan": phase_mlstm(gen)}
+
+    # olmo-1b: flash prefill, paged decode
     t0 = time.perf_counter()
     model = Model(get_config("olmo-1b"), seed=0, device=DEVICE)
     n_params = sum(t.numel() for t in model.buffers())
     print(f"olmo-1b at full width: {n_params} parameters, init "
           f"{time.perf_counter() - t0:.1f} s")
     phase_model_check(model)
-    launches = phase_main(model)
+    layers = model.cfg.n_layers
+    launches = phase_main(model, lambda stats, n_req: {
+        "flash_attention": n_req * layers,
+        "paged_attention": stats["steps"] * layers, "mlstm_scan": 0})
     phase_profile(model)
     del model
     torch.cuda.empty_cache()
+
+    # xlstm-1.3b: the mLSTM scan on every mLSTM block's prefill
+    t0 = time.perf_counter()
+    model = Model(get_config("xlstm-1.3b"), seed=0, device=DEVICE)
+    cfg = model.cfg
+    n_params = sum(t.numel() for t in model.buffers())
+    p_bytes = sum(t.numel() * t.element_size() for t in model.buffers())
+    n_mlstm = sum(block_kind(cfg, i) == "mlstm" for i in range(cfg.n_layers))
+    state = model.init_cache(MAIN["max_batch"], 1)
+    s_bytes = sum(t.numel() * t.element_size() for layer in state["blocks"]
+                  for t in layer["ssm"].values())
+    del state
+    print(f"xlstm-1.3b at full width: {cfg.n_layers} blocks ({n_mlstm} "
+          f"mLSTM, {cfg.n_layers - n_mlstm} sLSTM), d_model {cfg.d_model}; "
+          f"{n_params} parameters ({p_bytes} bytes); recurrent state of "
+          f"{MAIN['max_batch']} slots {s_bytes} bytes; init "
+          f"{time.perf_counter() - t0:.1f} s")
+    phase_xlstm_model_check(model)
+    x_launches = phase_main(model, lambda stats, n_req: {
+        "flash_attention": 0, "paged_attention": 0,
+        "mlstm_scan": n_req * n_mlstm})
+    phase_profile(model)
+    del model
+    torch.cuda.empty_cache()
+    launches = {k: n + x_launches[k] for k, n in launches.items()}
     rows = phase_timings(gen, launches, errs)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": rows}))

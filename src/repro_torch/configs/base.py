@@ -204,8 +204,9 @@ ARCH_IDS = (
 )
 
 #: the archs whose family this package can run: dense decoders with full
-#: attention (the other families are still to port, ROADMAP.md Queue 1 item 7)
-PORTED_ARCH_IDS = ("olmo-1b", "qwen3p6-27b")
+#: attention and the xLSTM stack (the other families are still to port,
+#: ROADMAP.md Queue 1 item 7)
+PORTED_ARCH_IDS = ("olmo-1b", "qwen3p6-27b", "xlstm-1.3b")
 
 _REGISTRY: dict[str, ModelConfig] = {}
 

@@ -3,7 +3,8 @@
 The reference's parameter and cache trees, exported to numpy (nested dicts
 and lists whose leaves are arrays or objects holding one in ``.value``),
 become the port's trees of tensors on ``device`` with the same structure
-and layouts: scan-stacked ``blocks`` keep their leading layers axis, and a
+and layouts: scan-stacked ``blocks`` keep their leading layers axis,
+unrolled (xLSTM) ``blocks`` and state trees stay per-layer lists, and a
 tied embedding stays one ``embed`` leaf.  bf16 converts exactly:
 ``torch.from_numpy`` does not take numpy's bfloat16 extension type, so the
 bits cross as uint16 and are viewed as ``torch.bfloat16``.  Nothing here
@@ -44,14 +45,17 @@ def params_from_numpy(tree, cfg, device: DeviceLike = None) -> dict:
     if cfg.tie_embeddings and "unembed" in params:
         raise ValueError(f"{cfg.name} ties its embeddings but the tree "
                          f"carries an 'unembed' leaf")
-    lead = params["blocks"]["attn"]["wq"].shape[0]
+    blocks = params["blocks"]
+    lead = (len(blocks) if isinstance(blocks, list)
+            else blocks["attn"]["wq"].shape[0])
     if lead != cfg.n_layers:
-        raise ValueError(f"blocks carry {lead} stacked layers, {cfg.name} "
-                         f"has {cfg.n_layers}")
+        raise ValueError(f"blocks carry {lead} layers, {cfg.name} has "
+                         f"{cfg.n_layers}")
     return params
 
 
 def cache_from_numpy(tree, device: DeviceLike = None) -> dict:
-    """The reference's KV cache tree (``{"blocks": {"kv": {"k", "v",
-    "pos"}}}``, stacked over layers) as the port's."""
+    """The reference's decode cache tree as the port's: the dense KV
+    cache (``{"blocks": {"kv": {"k", "v", "pos"}}}``, stacked over layers)
+    or xLSTM's per-layer state list (``{"blocks": [{"ssm": {...}}, ...]}``)."""
     return _convert(tree, resolve_device(device))

@@ -1,0 +1,112 @@
+"""Wrapper of the chunked mLSTM scan kernel.
+
+``mlstm_scan`` launches ``csrc/mlstm_scan.cu`` for tensors on the card and
+runs the plain version (``ref.mlstm_chunked_ref``) for tensors on the CPU.
+There is no fallback: a CUDA tensor the kernel does not take raises.
+``mlstm_scan.launches`` counts kernel launches (one per call; the call
+runs the source's three kernels, stats, scores and out, in order).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .ref import mlstm_chunked_ref
+
+#: largest q/k head dim the kernel takes (its state-update tiling)
+MAX_DK = 512
+
+
+def _check(q, k, v, log_i, log_f, chunk, initial_state):
+    if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 \
+            or v.shape[:3] != q.shape[:3]:
+        raise ValueError(f"mlstm_scan: q, k (B,S,H,dk), v (B,S,H,dv); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if log_i.shape != q.shape[:3] or log_f.shape != q.shape[:3]:
+        raise ValueError(f"mlstm_scan: gates must be (B,S,H) = "
+                         f"{tuple(q.shape[:3])}; got {tuple(log_i.shape)}, "
+                         f"{tuple(log_f.shape)}")
+    if chunk < 1 or q.shape[1] < 1:
+        raise ValueError(f"mlstm_scan: chunk {chunk} and length "
+                         f"{q.shape[1]} must be >= 1")
+    if initial_state is not None:
+        b, _, h, dk = q.shape
+        want = ((b, h, dk, v.shape[3]), (b, h, dk), (b, h))
+        got = tuple(tuple(t.shape) for t in initial_state)
+        if got != want:
+            raise ValueError(f"mlstm_scan: initial state (C, n, m) must be "
+                             f"{want}, got {got}")
+
+
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               log_i: torch.Tensor, log_f: torch.Tensor, *, chunk: int,
+               initial_state: Optional[tuple] = None):
+    """q, k: (B,S,H,dk) pre-scaled; v: (B,S,H,dv); log_i, log_f: (B,S,H)
+    f32; ``initial_state`` (C (B,H,dk,dv), n (B,H,dk), m (B,H)) f32 or the
+    empty state.  Returns (y (B,S,H,dv) in q's dtype, (C, n, m) f32)."""
+    _check(q, k, v, log_i, log_f, chunk, initial_state)
+    if q.device.type == "cpu":
+        return mlstm_chunked_ref(q, k, v, log_i, log_f, chunk=chunk,
+                                 initial_state=initial_state)
+    if q.device.type != "cuda":
+        raise ValueError(f"mlstm_scan: no kernel for {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"mlstm_scan: q/k/v must be f32 or bf16, got "
+                         f"{q.dtype}")
+    named = [("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype),
+             ("log_i", log_i, torch.float32), ("log_f", log_f, torch.float32)]
+    if initial_state is not None:
+        named += [(n, t, torch.float32)
+                  for n, t in zip(("C", "n", "m"), initial_state)]
+    for name, t, dtype in named:
+        if t.device != q.device or t.dtype != dtype:
+            raise ValueError(f"mlstm_scan: {name} must be {dtype} on "
+                             f"{q.device}, got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"mlstm_scan: {name} must be contiguous")
+    b, s, h, dk = q.shape
+    dv = v.shape[3]
+    if dk > MAX_DK:
+        raise ValueError(f"mlstm_scan: dk {dk} > {MAX_DK}")
+    lib = _lib()
+    dev, f32 = q.device, torch.float32
+    y = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
+    C = torch.empty((b, h, dk, dv), dtype=f32, device=dev)
+    n = torch.empty((b, h, dk), dtype=f32, device=dev)
+    m = torch.empty((b, h), dtype=f32, device=dev)
+    ws = torch.empty(lib.mlstm_scan_workspace_bytes(b, s, h, chunk) // 4,
+                     dtype=f32, device=dev)
+    state = ([t.data_ptr() for t in initial_state]
+             if initial_state is not None else [None] * 3)
+    rc = lib.mlstm_scan_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
+        log_f.data_ptr(), *state, y.data_ptr(), C.data_ptr(), n.data_ptr(),
+        m.data_ptr(), ws.data_ptr(), b, s, h, dk, dv, chunk,
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mlstm_scan kernel launch failed: CUDA error "
+                           f"{rc}")
+    mlstm_scan.launches += 1
+    return y, (C, n, m)
+
+
+mlstm_scan.launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+    lib = _build.load("mlstm_scan")
+    fn = lib.mlstm_scan_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        ws = lib.mlstm_scan_workspace_bytes
+        ws.argtypes = [ctypes.c_int] * 4
+        ws.restype = ctypes.c_size_t
+    return lib

@@ -1,6 +1,7 @@
 """Top-level model API: init / prefill / decode_step.
 
-PyTorch counterpart of ``repro.models.model`` for the dense family.  The
+PyTorch counterpart of ``repro.models.model`` for the dense family and
+the xLSTM stack (whose ``blocks`` and caches are per-layer lists).  The
 module-level functions take the parameter tree explicitly, as the
 reference's do; ``Model`` is the ``nn.Module`` that owns one tree on one
 device and binds them.
@@ -22,7 +23,8 @@ from repro_torch.device import DeviceLike, resolve_device
 
 from .layers import Params, apply_norm, init_norm, make_param
 from .transformer import (block_apply, check_supported, init_blocks,
-                          init_stacked_cache, layer_params)
+                          init_layer_states, init_stacked_cache, layer_params,
+                          xlstm_block_apply)
 
 
 # ---------------------------------------------------------------------------------
@@ -30,8 +32,9 @@ from .transformer import (block_apply, check_supported, init_blocks,
 # ---------------------------------------------------------------------------------
 
 def init_params(cfg, generator: torch.Generator, *, device=None) -> dict:
-    """Random parameters in the reference's tree layout (stacked blocks,
-    tied or separate unembedding), drawn from ``generator``."""
+    """Random parameters in the reference's tree layout (stacked dense
+    blocks or a per-layer xLSTM list, tied or separate unembedding), drawn
+    from ``generator``."""
     check_supported(cfg)
     params: dict = {
         "embed": make_param(generator, (cfg.vocab_size, cfg.d_model),
@@ -55,6 +58,23 @@ def init_params(cfg, generator: torch.Generator, *, device=None) -> dict:
 def _trunk(params, cfg, x, *, mode, positions, caches=None, cache_index=None,
            slots=None, max_len: int = 0):
     """Run all decoder blocks; returns (x, new_caches)."""
+    if isinstance(params["blocks"], list):       # unrolled xLSTM stack
+        # the reference's compiled decode (one jit over the unrolled
+        # stack) feeds every norm the f32 residual sum before its bf16
+        # rounding (XLA's default excess precision); the stream keeps the
+        # rounded sum, and its eager prefill rounds before every norm
+        layers = (caches["blocks"] if caches is not None
+                  else [None] * cfg.n_layers)
+        decode = mode == "decode"
+        resid, new_layers = None, []
+        for i, p in enumerate(params["blocks"]):
+            x, resid, nc = xlstm_block_apply(
+                p, x, cfg, i, mode=mode, cache=layers[i], slots=slots,
+                norm_in=resid if decode else None)
+            new_layers.append(nc)
+        x = apply_norm(params["final_norm"], resid if decode else x,
+                       cfg.norm_kind).to(x.dtype)
+        return x, (caches if decode else {"blocks": new_layers})
     kv = caches["blocks"]["kv"] if caches is not None else None
     new_layers = []
     for i in range(cfg.n_layers):
@@ -88,6 +108,11 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> dict:
+    """The resident decode cache: the dense KV cache (``max_len``
+    positions, ``dtype``), or xLSTM's f32 recurrent state, whose size does
+    not depend on ``max_len``."""
+    if cfg.family == "ssm":
+        return {"blocks": init_layer_states(cfg, batch, device)}
     return {"blocks": init_stacked_cache(cfg, batch, max_len, dtype, device)}
 
 
@@ -127,6 +152,9 @@ def _flatten(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _flatten(v, f"{prefix}{k}__")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, f"{prefix}{i}__")
     else:
         yield prefix[:-2], tree
 

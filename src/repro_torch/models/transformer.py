@@ -1,14 +1,20 @@
-"""Transformer assembly for the dense decoder family.
+"""Transformer assembly: dense decoders and xLSTM stacks.
 
 PyTorch counterpart of ``repro.models.transformer``, for the configs this
-package runs: dense GQA decoders with full attention.  Layers keep the
-reference's scan-stacked layout (each leaf of ``params["blocks"]`` has a
-leading layers axis) and are applied in a Python loop over views.
+package runs: dense GQA decoders with full attention, and xLSTM's
+mLSTM/sLSTM stack.  Dense layers keep the reference's scan-stacked layout
+(each leaf of ``params["blocks"]`` has a leading layers axis) and are
+applied in a Python loop over views; xLSTM's heterogeneous blocks are a
+per-layer list, as the reference unrolls them (``scan_layers=False``).
 
-Cache layout (decode): one tree ``{"k", "v", "pos"}`` stacked over layers,
-``k``/``v`` (L, B, cap, KV, D) and ``pos`` (L, B, cap), as the reference
-builds it, so cache contents compare one to one.  Decode updates that
-cache *in place* and attends over it with the paged-attention kernel.
+Cache layout (decode), as the reference builds it, so cache contents
+compare one to one:
+  dense: one tree ``{"k", "v", "pos"}`` stacked over layers, ``k``/``v``
+         (L, B, cap, KV, D) and ``pos`` (L, B, cap).  Decode updates it
+         *in place* and attends over it with the paged-attention kernel.
+  xLSTM: a list of per-layer ``{"ssm": state}`` trees (``models/ssm.py``).
+         Decode reads the stepping rows' state at ``slots`` and writes the
+         new state back into those rows in place (``index_copy_``).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.paged_attention import ops as pa_ops
 
+from . import ssm
 from .layers import (Params, apply_norm, attention_block, init_attention,
                      init_mlp, init_norm, mlp_block, qkv_projections)
 
@@ -30,7 +37,12 @@ PAGE_SIZE = 16
 def check_supported(cfg) -> None:
     """Raise for a config whose layers this package cannot run yet."""
     missing = []
-    if cfg.family != "dense":
+    if cfg.family == "ssm":
+        if cfg.ssm_kind != "xlstm":
+            missing.append(f"ssm_kind {cfg.ssm_kind!r}")
+        if cfg.scan_layers:
+            missing.append("scan-stacked (scan_layers=True) xLSTM trees")
+    elif cfg.family != "dense":
         missing.append(f"family {cfg.family!r}")
     if cfg.sliding_window or cfg.global_layers:
         missing.append("sliding-window ring caches")
@@ -42,8 +54,8 @@ def check_supported(cfg) -> None:
         missing.append("MoE")
     if cfg.encoder_layers or cfg.frontend:
         missing.append("encoders and frontends")
-    if not cfg.scan_layers:
-        missing.append("unstacked (scan_layers=False) parameter trees")
+    if cfg.family == "dense" and not cfg.scan_layers:
+        missing.append("unstacked (scan_layers=False) dense trees")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet "
@@ -54,8 +66,23 @@ def check_supported(cfg) -> None:
 # Block init / apply
 # ---------------------------------------------------------------------------------
 
-def init_blocks(generator, cfg, *, device=None) -> Params:
-    """All decoder blocks' parameters, stacked on a leading layers axis."""
+def block_kind(cfg, layer_idx: int) -> str:
+    """"mlstm" / "slstm" for xLSTM blocks (every ``slstm_every``-th is
+    sLSTM), "dense" otherwise."""
+    if cfg.family == "ssm":
+        if cfg.slstm_every and (layer_idx % cfg.slstm_every
+                                == cfg.slstm_every - 1):
+            return "slstm"
+        return "mlstm"
+    return "dense"
+
+
+def init_blocks(generator, cfg, *, device=None):
+    """All decoder blocks' parameters: stacked on a leading layers axis
+    (dense), or a per-layer list (xLSTM)."""
+    if cfg.family == "ssm":
+        return [init_xlstm_block(generator, cfg, i, device=device)
+                for i in range(cfg.n_layers)]
     lead = (cfg.n_layers,)
     return {
         "attn_norm": init_norm(generator, cfg.d_model, cfg.norm_kind,
@@ -65,6 +92,14 @@ def init_blocks(generator, cfg, *, device=None) -> Params:
                               cfg.dtype, lead=lead, device=device),
         "mlp": init_mlp(generator, cfg, lead=lead, device=device),
     }
+
+
+def init_xlstm_block(generator, cfg, layer_idx: int, *, device=None) -> Params:
+    init = (ssm.init_mlstm if block_kind(cfg, layer_idx) == "mlstm"
+            else ssm.init_slstm)
+    return {"norm": init_norm(generator, cfg.d_model, cfg.norm_kind,
+                              cfg.dtype, device=device),
+            "mix": init(generator, cfg, device=device)}
 
 
 def layer_params(stacked: Params, i: int) -> Params:
@@ -103,6 +138,40 @@ def block_apply(p: Params, x: torch.Tensor, cfg, *, mode: str,
     x = resid.to(x.dtype)
     x = x + mlp_block(p["mlp"], h, cfg)
     return x, new_cache
+
+
+def xlstm_block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
+                      mode: str, cache: Optional[dict] = None,
+                      slots: Optional[torch.Tensor] = None,
+                      norm_in: Optional[torch.Tensor] = None):
+    """Apply one xLSTM block.  Returns (x, resid, new_cache): ``x`` the
+    bf16 residual stream and ``resid`` the same sum in f32 before its
+    rounding.
+
+    mode: "prefill" (run the whole prompt from the empty state; the new
+    cache is ``{"ssm": final state}``) or "decode" (step the rows at
+    ``slots`` of ``cache`` and write their new state back in place).
+    Slots must be distinct: duplicate rows in an in-place write have no
+    defined winner.  ``norm_in`` is what the block's norm reads (default
+    ``x``): the decode passes the previous block's f32 ``resid``, as the
+    reference's compiled decode does (``_trunk``)."""
+    kind = block_kind(cfg, layer_idx)
+    h = apply_norm(p["norm"], x if norm_in is None else norm_in,
+                   cfg.norm_kind).to(x.dtype)
+    if mode == "decode":
+        full = cache["ssm"]
+        rows = slots.to(torch.int64)
+        step = ssm.mlstm_step if kind == "mlstm" else ssm.slstm_step
+        y, new = step(p["mix"], h, cfg, {k: t[rows] for k, t in full.items()})
+        for name, t in full.items():
+            t.index_copy_(0, rows, new[name].to(t.dtype))
+        new_cache = cache
+    else:
+        fwd = ssm.mlstm_chunked if kind == "mlstm" else ssm.slstm_forward
+        y, state = fwd(p["mix"], h, cfg, state=None)
+        new_cache = {"ssm": state}
+    resid = x.float() + y.float()
+    return resid.to(x.dtype), resid, new_cache
 
 
 # ---------------------------------------------------------------------------------
@@ -198,3 +267,10 @@ def init_stacked_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "pos": torch.full(shape[:3], -1, dtype=torch.int32, device=device)}}
+
+
+def init_layer_states(cfg, batch: int, device=None) -> list:
+    """Empty recurrent state of every xLSTM block, one tree per layer."""
+    return [{"ssm": (ssm.init_mlstm_state if block_kind(cfg, i) == "mlstm"
+                     else ssm.init_slstm_state)(batch, cfg, device=device)}
+            for i in range(cfg.n_layers)]

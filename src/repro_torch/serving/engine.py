@@ -24,9 +24,11 @@ Differences from the reference:
   * the model owns its weights (``models.model.Model``); ``seed`` seeds
     only the sampling generator (``seed + 1``, as the reference's key);
   * decode writes K/V in place and the paged kernel reads the resident
-    cache, so there is no gather/scatter and no power-of-two bucket: the
-    packed step runs at exactly the packed width (accounting, which prices
-    that width in both packages, is unchanged);
+    cache (xLSTM: the stepping rows' state is read at their slots and
+    written back in place), so there is no gather/scatter of whole caches
+    and no power-of-two bucket: the packed step runs at exactly the packed
+    width (accounting, which prices that width in both packages, is
+    unchanged);
   * bridge_opt (staging arena, coalescer) and tensor-parallel pricing
     are not ported yet: defaults or a compute model that ask for them
     raise ``NotImplementedError``.  Nor is the resilience layer's
@@ -286,10 +288,24 @@ class ServingEngine:
         self.active[slot] = req
 
     def _insert_slot_cache(self, pre_cache, slot: int) -> None:
-        """Copy a one-row prefill cache into ``slot`` of the resident cache
-        (every leaf is stacked over layers: the slot axis is 1)."""
-        for name, full in self.caches["blocks"]["kv"].items():
-            full[:, slot].copy_(pre_cache["blocks"]["kv"][name][:, 0])
+        """Copy a one-row prefill cache into ``slot`` of the resident cache:
+        the slot axis is 1 for the dense KV cache's layer-stacked leaves and
+        0 for xLSTM's per-layer state leaves."""
+        stacked = self.cfg.scan_layers
+
+        def walk(full, one):
+            if isinstance(full, dict):
+                for key in full:
+                    walk(full[key], one[key])
+            elif isinstance(full, list):
+                for f, o in zip(full, one):
+                    walk(f, o)
+            elif stacked:
+                full[:, slot].copy_(one[:, 0])
+            else:
+                full[slot].copy_(one[0])
+
+        walk(self.caches["blocks"], pre_cache["blocks"])
 
     def _release(self, req: Request, *, state: str = "finished") -> None:
         if req.slot >= 0:

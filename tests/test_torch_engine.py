@@ -2,7 +2,9 @@
 
 With shared weights the port's ``ServingEngine`` and the reference's give
 identical greedy token streams and identical virtual-clock stats under
-every policy, for the packed and the dense step; the port's harness
+every policy, for the packed and the dense step, for the dense olmo-1b
+smoke decoder and the xlstm-1.3b smoke stack (with ``slstm_every=2``, so
+it has an sLSTM block); the port's harness
 reproduces the checked-in golden tapes under ``tests/golden/regen.py``'s
 comparison; one call sequence through both gateways gives equal tapes.
 """
@@ -95,9 +97,19 @@ def _run(engine, request_cls, sampling_cls, prompts):
     return tokens, stats
 
 
-@pytest.mark.parametrize("packed", [True, False], ids=["packed", "dense"])
-@pytest.mark.parametrize("policy", POLICIES)
-def test_engine_matches_reference(shared, policy, packed):
+@pytest.fixture(scope="module")
+def shared_xlstm():
+    jcfg = dataclasses.replace(smoke_config(all_configs()["xlstm-1.3b"]),
+                               slstm_every=2)
+    tcfg = dataclasses.replace(t_smoke(get_config("xlstm-1.3b")),
+                               slstm_every=2)
+    jmodel = JModel(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+    return jcfg, jmodel, Model(tcfg, params=tparams, device="cpu")
+
+
+def _engines_agree(shared, policy, packed):
     jcfg, jmodel, model = shared
     prompts = _prompts(jcfg.vocab_size)
     jengine = JEngine(
@@ -116,6 +128,18 @@ def test_engine_matches_reference(shared, policy, packed):
     assert tstats == jstats
     assert [dataclasses.asdict(t) for t in tengine.trace] == \
         [dataclasses.asdict(t) for t in jengine.trace]
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "dense"])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_engine_matches_reference(shared, policy, packed):
+    _engines_agree(shared, policy, packed)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "dense"])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_xlstm_engine_matches_reference(shared_xlstm, policy, packed):
+    _engines_agree(shared_xlstm, policy, packed)
 
 
 # ---------------------------------------------------------------------------------
@@ -143,7 +167,7 @@ def test_port_reads_and_reprices_golden_tapes(policy):
         assert ours.total_replayed_s == ref.total_replayed_s
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3p6-27b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3p6-27b", "xlstm-1.3b"])
 def test_compute_pricing_matches_reference(arch):
     from repro.core.compute import ComputeModel as JCompute
     from repro_torch.core.compute import ComputeModel, _dtype_bytes
@@ -224,7 +248,9 @@ def test_tensor_parallel_pricing_raises(shared):
 
 def test_launcher_runs_on_cpu(capsys):
     from repro_torch.launch.serve import main
-    stats = main(["--device", "cpu", "--requests", "3", "--max-new-tokens",
-                  "4", "--cc", "--policy", "sync"])
-    assert stats["finished"] == 3 and stats["total_tokens"] == 12
-    assert "wall tok/s" in capsys.readouterr().out
+    for arch in ("olmo-1b", "xlstm-1.3b"):
+        stats = main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                      "--max-new-tokens", "4", "--cc", "--policy", "sync"])
+        assert stats["finished"] == 3 and stats["total_tokens"] == 12
+        out = capsys.readouterr().out
+        assert f"arch={arch}-smoke" in out and "wall tok/s" in out

@@ -49,6 +49,10 @@ print(json.dumps({"modules": mods, "bad": bad}))
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.serving.engine" in result["modules"]
     assert "repro_torch.kernels.paged_attention.ops" in result["modules"]
+    for name in ("repro_torch.kernels.mlstm_scan.ops",
+                 "repro_torch.kernels.mlstm_scan.ref",
+                 "repro_torch.models.ssm", "repro_torch.configs.xlstm_1p3b"):
+        assert name in result["modules"]
     assert result["bad"] == []
 
 

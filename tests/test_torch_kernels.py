@@ -3,8 +3,10 @@
 The CUDA kernels themselves run only on the card (``chip_smoke.py`` holds
 them to these plain versions there); here the plain versions are held to
 the reference's jnp oracles over ``tests/test_kernels.py``'s shape sweeps,
-and to the Pallas kernels in interpret mode on one small shape each.
-Tolerances are ``tests/test_kernels.py``'s: 2e-4 in f32, 3e-2 in bf16.
+and to the Pallas kernels in interpret mode.  Tolerances are
+``tests/test_kernels.py``'s: attention 2e-4 in f32 and 3e-2 in bf16; the
+mLSTM scan rtol 1e-5 with atol 5e-4 (f32) or 1e-1 (bf16) and a mean error
+below 1e-5 (f32) or 1e-3 (bf16).
 """
 
 import numpy as np
@@ -16,11 +18,16 @@ import jax.numpy as jnp
 
 from repro.kernels.flash_attention.flash_attention import flash_attention_kernel
 from repro.kernels.flash_attention.ref import attention_ref
+from repro.kernels.mlstm_scan.mlstm_scan import mlstm_scan_kernel
+from repro.kernels.mlstm_scan.ref import mlstm_ref
 from repro.kernels.paged_attention.paged_attention import paged_attention_kernel
 from repro.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.mlstm_scan import ops as ml_ops
+from repro_torch.kernels.mlstm_scan.ref import (mlstm_chunked_ref,
+                                                 mlstm_sequential_ref)
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref as paged_ref_torch)
@@ -145,3 +152,131 @@ class TestPagedPlain:
         out = pa_ops.paged_attention(*targs)
         assert pa_ops.paged_attention.launches == before == 0
         assert torch.equal(out, paged_ref_torch(*targs))
+
+
+# tests/test_kernels.py's mLSTM sweep: (b, s, h, dk, dv, chunk)
+MLSTM_SHAPES = [
+    (2, 64, 2, 32, 64, 16),
+    (1, 100, 4, 64, 128, 32),   # ragged tail
+    (2, 128, 2, 32, 64, 128),   # single chunk
+]
+MLSTM_TOL = {"f32": (5e-4, 1e-5), "bf16": (1e-1, 1e-3)}   # atol, mean bound
+
+
+def _mlstm_case(rng, dt, b, s, h, dk, dv, initial_state=False):
+    """Inputs as tests/test_kernels.py draws them (q pre-scaled, log_i
+    normal x 2, log_f = log_sigmoid(normal + 1)), made with numpy; q/k/v
+    rounded to ``dt``, gates and state in f32."""
+    _, jdt, _, _ = DTYPES[dt]
+    arrays = [rng.standard_normal((b, s, h, dk)) / np.sqrt(dk),
+              rng.standard_normal((b, s, h, dk)),
+              rng.standard_normal((b, s, h, dv))]
+    arrays = [np.asarray(jnp.asarray(a.astype(np.float32)).astype(jdt))
+              for a in arrays]
+    li = (rng.standard_normal((b, s, h)) * 2.0).astype(np.float32)
+    x = rng.standard_normal((b, s, h)).astype(np.float32) + 1.0
+    lf = np.minimum(x, 0) - np.log1p(np.exp(-np.abs(x)))      # log_sigmoid
+    arrays += [li, lf.astype(np.float32)]
+    state = None
+    if initial_state:
+        state = (rng.standard_normal((b, h, dk, dv)).astype(np.float32),
+                 rng.standard_normal((b, h, dk)).astype(np.float32),
+                 rng.standard_normal((b, h)).astype(np.float32))
+    jargs = [jnp.asarray(a) for a in arrays]
+    targs = [tensor_from_numpy(a, "cpu") for a in arrays]
+    jstate = None if state is None else tuple(jnp.asarray(a) for a in state)
+    tstate = None if state is None else tuple(
+        tensor_from_numpy(a, "cpu") for a in state)
+    return jargs, targs, jstate, tstate
+
+
+def _mlstm_close(jax_y, torch_y, dt):
+    atol, mean_bound = MLSTM_TOL[dt]
+    got = torch_y.float().numpy()
+    want = np.asarray(jax_y.astype(jnp.float32))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol)
+    assert float(np.mean(np.abs(got - want))) < mean_bound
+
+
+def _state_close(jax_state, torch_state):
+    for j, t in zip(jax_state, torch_state):
+        assert t.dtype == torch.float32
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5,
+                                   atol=5e-4)
+
+
+class TestMlstmPlain:
+    @pytest.mark.parametrize("b,s,h,dk,dv,chunk", MLSTM_SHAPES)
+    @pytest.mark.parametrize("dt", list(DTYPES))
+    def test_matches_sequential_oracle_and_pallas_kernel(self, b, s, h, dk,
+                                                         dv, chunk, dt):
+        jargs, targs, _, _ = _mlstm_case(np.random.default_rng(0), dt, b, s,
+                                         h, dk, dv)
+        y, state = mlstm_chunked_ref(*targs, chunk=chunk)
+        assert y.dtype == DTYPES[dt][2]
+        ref_y, ref_state = mlstm_ref(*jargs)
+        _mlstm_close(ref_y, y, dt)
+        _state_close(ref_state, state)
+        _mlstm_close(mlstm_scan_kernel(*jargs, chunk=chunk, interpret=True),
+                     y, dt)
+
+    @pytest.mark.parametrize("dt", list(DTYPES))
+    def test_initial_state(self, dt):
+        """A scan that starts from a carried state (C, n, m)."""
+        jargs, targs, jstate, tstate = _mlstm_case(
+            np.random.default_rng(1), dt, 2, 70, 2, 32, 64,
+            initial_state=True)
+        y, state = mlstm_chunked_ref(*targs, chunk=32, initial_state=tstate)
+        ref_y, ref_state = mlstm_ref(*jargs, initial_state=jstate)
+        _mlstm_close(ref_y, y, dt)
+        _state_close(ref_state, state)
+
+    def test_sequential_oracle_matches_reference_oracle(self):
+        jargs, targs, jstate, tstate = _mlstm_case(
+            np.random.default_rng(2), "f32", 1, 40, 2, 32, 64,
+            initial_state=True)
+        y, state = mlstm_sequential_ref(*targs, initial_state=tstate)
+        ref_y, ref_state = mlstm_ref(*jargs, initial_state=jstate)
+        _mlstm_close(ref_y, y, "f32")
+        _state_close(ref_state, state)
+
+    def test_chunk_invariance_and_state_hand_off(self):
+        """Chunkings agree, and scanning two halves with the state handed
+        over equals scanning the whole."""
+        _, targs, _, _ = _mlstm_case(np.random.default_rng(3), "f32", 1, 96,
+                                     2, 32, 64)
+        y16, s16 = mlstm_chunked_ref(*targs, chunk=16)
+        y48, s48 = mlstm_chunked_ref(*targs, chunk=48)
+        np.testing.assert_allclose(y16.numpy(), y48.numpy(), atol=1e-4)
+        first = [t[:, :40] for t in targs]
+        rest = [t[:, 40:] for t in targs]
+        ya, sa = mlstm_chunked_ref(*first, chunk=16)
+        yb, sb = mlstm_chunked_ref(*rest, chunk=16, initial_state=sa)
+        np.testing.assert_allclose(torch.cat([ya, yb], 1).numpy(),
+                                   y16.numpy(), atol=1e-4)
+        for a, c in zip(sb, s16):
+            np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=1e-5,
+                                       atol=1e-4)
+
+    def test_wrapper_on_cpu_takes_plain_version_without_launching(self):
+        _, targs, _, tstate = _mlstm_case(np.random.default_rng(4), "f32", 1,
+                                          20, 2, 32, 64, initial_state=True)
+        before = ml_ops.mlstm_scan.launches
+        y, state = ml_ops.mlstm_scan(*targs, chunk=8, initial_state=tstate)
+        assert ml_ops.mlstm_scan.launches == before == 0
+        ref_y, ref_state = mlstm_chunked_ref(*targs, chunk=8,
+                                             initial_state=tstate)
+        assert torch.equal(y, ref_y)
+        assert all(torch.equal(a, c) for a, c in zip(state, ref_state))
+
+    def test_wrapper_rejects_bad_shapes(self):
+        q = torch.zeros(1, 8, 2, 16)
+        v = torch.zeros(1, 8, 2, 32)
+        gates = torch.zeros(1, 8, 2)
+        with pytest.raises(ValueError):
+            ml_ops.mlstm_scan(q, q, v, gates, torch.zeros(1, 8, 3), chunk=4)
+        with pytest.raises(ValueError):
+            ml_ops.mlstm_scan(q, q, v, gates, gates, chunk=4,
+                              initial_state=(torch.zeros(1, 2, 16, 16),
+                                             torch.zeros(1, 2, 16),
+                                             torch.zeros(1, 2)))
