@@ -6,11 +6,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with
 nvcc (sm_90a), holds each kernel to its plain PyTorch version on the card,
 serves full-width olmo-1b and then full-width xlstm-1.3b (random weights
 from a seed) through the port's ``ServingEngine`` under the sync, async and
-worker policies, checks that each path went through its kernels (launch
-counters: flash + paged for olmo-1b, the chunked mLSTM scan for
-xlstm-1.3b) and that its crossing tapes obey the bridge law, profiles a
-decode step of each, and times each kernel, its plain version and the
-PyTorch call computing the same function, where there is one.  It prints
+worker policies, runs full-width olmo-1b's quantized KV restore under
+decode (bridge_opt on; restore codecs "", fp8 and int8, each restored block
+widened by the dequant kernel), checks that each path went through its
+kernels (launch counters: flash + paged for olmo-1b, the chunked mLSTM scan
+for xlstm-1.3b, dequant once per quantized block restored) and that its
+crossing tapes obey the bridge law, profiles a decode step of each model,
+and times each kernel, its plain version and the PyTorch call computing the
+same function, where there is one.  It prints
 the card's name and power limit, one ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the repository's ``src`` beside it, it exits non-zero and prints
@@ -44,6 +47,17 @@ PEAK_HBM_BYTES = 3.35e12
 DEVICE = "cuda"
 MAIN = dict(max_batch=8, max_len=1024, new_tokens=32,
             prompt_lens=[16, 87, 158, 229, 299, 370, 441, 512])
+#: the restore-under-decode path: a shared prompt spilled as KV blocks of
+#: ``block_tokens`` and restored (pipelined, ``chunk_bytes`` chunks) for the
+#: request that re-reads it while three short requests decode
+RESTORE = dict(max_batch=4, max_len=1024, prompt_len=512, block_tokens=16,
+               new_tokens=32, short_lens=[24, 48, 96], short_new_tokens=8,
+               chunk_bytes=4 << 20)
+#: per-block bound on max|widened - spilled| / block amax: half a code step
+#: at the top of the block (int8: 0.5/127; fp8 e4m3: 16 of 448), plus the
+#: f32 rounding of the scale, the product and the difference
+QUANT_BOUND = {"int8": 0.5 / 127, "fp8": 16 / 448}
+F32_SLACK = 2.0 ** -22
 
 
 def fail(msg: str) -> None:
@@ -259,6 +273,60 @@ def _mlstm_compare(args, kw, where) -> tuple:
     return worst, "; ".join(report)
 
 
+def _bit_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """f32 tensors equal bit for bit (-0.0 apart from +0.0), NaN as NaN."""
+    nan = torch.isnan(want)
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int32),
+                            want[~nan].view(torch.int32)))
+
+
+def phase_dequant(gen) -> float:
+    """The dequant kernel against its plain version on the card, bit for
+    bit: int8 and fp8, 1, 127, 8,192 (one full-width olmo-1b KV block) and
+    8,193 blocks, every one of the 256 codes present, NaN compared as NaN.
+    Then the torch encode on the card against the same encode on the CPU,
+    on a seeded full-width KV block.  Returns the worst max-abs error over
+    the finite values (0 when bit-equal)."""
+    from repro_torch.kernels.dequant import ops
+    from repro_torch.kernels.dequant.ref import dequant_ref
+    from repro_torch.quant import get_codec
+    worst = 0.0
+    every = torch.arange(256, device=DEVICE, dtype=torch.int32).to(torch.uint8)
+    for codec in ("int8", "fp8"):
+        for nblocks in (1, 127, 8192, 8193):
+            codes = torch.randint(0, 256, (nblocks * 128,), generator=gen,
+                                  device=DEVICE, dtype=torch.int32
+                                  ).to(torch.uint8)
+            n = min(256, codes.numel())
+            codes[:n] = every[:n] if nblocks > 1 else every[128:]
+            codes = codes.reshape(nblocks, 128)
+            scales = torch.randn(nblocks, generator=gen, device=DEVICE) * 4
+            out = ops.dequant(codes, scales, codec=codec)
+            torch.cuda.synchronize()
+            plain = dequant_ref(codes, scales[:, None], codec=codec)
+            finite = torch.isfinite(plain)
+            err = (out[finite] - plain[finite]).abs().max().item()
+            print(f"dequant {codec} nblocks={nblocks}: bit-equal "
+                  f"{_bit_equal(out, plain)}, max_abs_err {err:.3g}, "
+                  f"{int((~finite).sum())} NaN codes")
+            check(_bit_equal(out, plain), f"dequant kernel ({codec}, "
+                  f"{nblocks} blocks) differs from its plain version")
+            worst = max(worst, err)
+        x = torch.randn((2, 16, 16, 16, 128), generator=gen, device=DEVICE)
+        x = (x * 3).to(torch.bfloat16)
+        card, host = get_codec(codec).encode(x), get_codec(codec).encode(
+            x.cpu())
+        same = (torch.equal(card.codes.cpu(), host.codes)
+                and torch.equal(card.scales.cpu().view(torch.int32),
+                                host.scales.view(torch.int32)))
+        print(f"encode {codec} on the card vs the CPU ({card.raw_bytes} raw, "
+              f"{card.wire_bytes} wire bytes): codes and scales equal {same}")
+        check(same, f"{codec} encode on the card differs from the CPU's")
+    return worst
+
+
 def _prefill_and_decode(model, prompt_len: int) -> torch.Tensor:
     """A ``prompt_len``-token prefill and four teacher-forced decode
     steps; all their logits, flattened, in f32."""
@@ -375,12 +443,14 @@ def phase_xlstm_model_check(model) -> None:
 
 def _counters() -> dict:
     """Every kernel wrapper of the port, by name (each counts launches)."""
+    from repro_torch.kernels.dequant import ops as dq
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.mlstm_scan import ops as ml
     from repro_torch.kernels.paged_attention import ops as pa
     return {"flash_attention": fa.flash_attention,
             "paged_attention": pa.paged_attention,
-            "mlstm_scan": ml.mlstm_scan}
+            "mlstm_scan": ml.mlstm_scan,
+            "dequant": dq.dequant}
 
 
 def phase_main(model, expected) -> dict:
@@ -542,6 +612,198 @@ def phase_profile(model) -> None:
               f"calls/step  {e.key[:90]}")
 
 
+def _restore_run(model, kv_quant: str, blocks: list, shared: list,
+                 shorts: list) -> dict:
+    """One restore-under-decode run: spill ``blocks`` through an
+    ``OffloadManager`` on the engine's gateway, serve the shared prompt
+    (``r0``) and the short ones, restore the blocks for ``r0`` after the
+    first step, and run to the end.  Returns what the checks read."""
+    from dataclasses import replace
+    from repro_torch.core.bridge import B300, BridgeModel
+    from repro_torch.core.policy import (OffloadPolicy, SchedulingPolicy,
+                                         cc_aware_defaults)
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.offload import OffloadManager
+    from repro_torch.serving.sampler import SamplingParams
+    from repro_torch.trace import TraceRecorder, check_tape
+    from repro_torch.trace import opclasses as oc
+
+    sync = SchedulingPolicy.SYNC_DRAIN
+    defaults = replace(cc_aware_defaults(True, bridge_opt=True),
+                       scheduling=sync, slot_masked_decode=True,
+                       kv_quant=kv_quant)
+    engine = ServingEngine(model, max_batch=RESTORE["max_batch"],
+                           max_len=RESTORE["max_len"], policy=sync,
+                           bridge=BridgeModel(B300, cc_on=True),
+                           defaults=defaults, seed=0, device=DEVICE)
+    mgr = OffloadManager(engine.gateway, OffloadPolicy.REUSE_AWARE,
+                         pipelined_restore=True,
+                         restore_chunk_bytes=RESTORE["chunk_bytes"],
+                         kv_quant=kv_quant, compute_model=engine.compute)
+    mgr.on_restore_done.append(engine.mark_restore)
+    engine.gateway.pool.prewarm()   # secure contexts up before serving
+    recorder = TraceRecorder(engine.gateway, policy=sync.value,
+                             label=f"chip-smoke-restore-{kv_quant or 'bf16'}")
+    counters = _counters()
+    hashes = list(range(len(blocks)))
+    try:
+        with recorder:
+            for fn in counters.values():
+                fn.launches = 0
+            for h, block in zip(hashes, blocks):
+                for _ in range(mgr.store_threshold):
+                    mgr.observe(h)
+                check(mgr.evict(h, payload=block), f"block {h} not spilled")
+            engine.submit(Request("r0", prompt=shared, sampling=SamplingParams(
+                max_new_tokens=RESTORE["new_tokens"])))
+            for i, p in enumerate(shorts):
+                engine.submit(Request(f"r{i + 1}", prompt=p,
+                                      sampling=SamplingParams(
+                                          max_new_tokens=RESTORE[
+                                              "short_new_tokens"])))
+            engine.step()               # every request resident and decoding
+            torch.cuda.synchronize()
+            before = sum(len(r.output_tokens) for r in engine.active.values())
+            t0 = time.perf_counter()
+            hits = mgr.restore(hashes, key="r0")
+            torch.cuda.synchronize()
+            restore_wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            stats = engine.run()
+            torch.cuda.synchronize()
+            run_wall = time.perf_counter() - t0
+    finally:
+        engine.close()
+    counts = {name: fn.launches for name, fn in counters.items()}
+    tape = recorder.tape()
+    restore = [r for r in tape.records if r.kind == "crossing"
+               and r.op_class in (oc.KV_RESTORE_H2D, oc.KV_RESTORE_PIPELINED,
+                                  oc.KV_RESTORE_Q)]
+    report = check_tape(tape)
+    check(report.ok, f"restore {kv_quant or 'bf16'}: tape violates the "
+                     f"bridge law:\n{report.format()}")
+    return dict(
+        mgr=mgr, stats=stats, counts=counts, hits=hits, tape=tape,
+        tokens={r.request_id: list(r.output_tokens) for r in engine.finished},
+        restore_wire=sum(r.nbytes for r in restore),
+        restore_raw=sum(r.raw_bytes or r.nbytes for r in restore),
+        dequant_s=sum(r.t_end - r.t_start for r in tape.records
+                      if r.op_class == oc.DEQUANT_COMPUTE),
+        restore_wall=restore_wall, run_wall=run_wall,
+        decode_tokens=stats["total_tokens"] - before)
+
+
+def _check_restored(kv_quant: str, mgr, blocks: list) -> str:
+    """Every restored block against what was spilled: bit-identical when
+    unquantized; quantized, equal bit for bit to the plain version on the
+    card and to the CPU codec's decode of the same host-store codes, and
+    within the codec's per-block bound of the spilled values."""
+    from repro_torch.kernels.dequant.ref import dequant_ref
+    from repro_torch.quant import get_codec, split_wire
+    worst = 0.0
+    for h, block in enumerate(blocks):
+        got = mgr.restored.pop(h)
+        if not kv_quant:
+            check(got.dtype == block.dtype and torch.equal(got, block),
+                  f"unquantized restore of block {h} differs from the "
+                  f"spilled rows")
+            continue
+        host = mgr.host_store[h]
+        qb = host.qblock
+        check(host.payload.nbytes == qb.wire_bytes
+              == qb.codes.numel() + 4 * qb.scales.numel(),
+              f"block {h}: host wire buffer is not codes + scales")
+        codes, scales = split_wire(torch.from_numpy(host.payload).to(DEVICE),
+                                   qb.codes.numel())
+        plain = dequant_ref(codes.reshape(-1, 128), scales[:, None],
+                            codec=kv_quant).reshape(block.shape)
+        on_cpu = get_codec(kv_quant).decode(qb)
+        check(_bit_equal(got, plain) and _bit_equal(got.cpu(), on_cpu),
+              f"{kv_quant}: widened block {h} differs from the plain "
+              f"version or the CPU codec's decode")
+        amax = block.float().abs().reshape(-1, 128).amax(1)
+        err = (got - block.float()).abs().reshape(-1, 128).amax(1)
+        rel = (err / amax.clamp_min(1e-30)).max().item()
+        check(bool((err <= amax * (QUANT_BOUND[kv_quant] + F32_SLACK)).all()),
+              f"{kv_quant}: block {h} off by {rel} of its block amax "
+              f"(bound {QUANT_BOUND[kv_quant]})")
+        worst = max(worst, rel)
+    if not kv_quant:
+        return f"{len(blocks)} blocks bit-identical to the spilled rows"
+    return (f"{len(blocks)} blocks bit-equal to the plain version and the "
+            f"CPU decode; worst per-block error {worst:.6g} of amax "
+            f"(bound {QUANT_BOUND[kv_quant]:.6g})")
+
+
+def phase_restore(model) -> int:
+    """Full-width olmo-1b's KV restore under decode, once per codec in "",
+    fp8 and int8: the shared prompt's K/V (from the model's prefill) spills
+    as blocks of (2, layers, 16 tokens, KV heads, head dim) bf16 and is
+    restored pipelined for ``r0`` while three short requests decode (the
+    reference's bench_quant shape at full width, with real payloads).
+    Checks tokens across codecs, restore bytes, the tapes (law Q
+    included), the launch counts and every restored block.  Returns the
+    dequant launches of the two quantized runs."""
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(3)
+    shared = torch.randint(1, cfg.vocab_size, (RESTORE["prompt_len"],),
+                           generator=gen).tolist()
+    shorts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+              for n in RESTORE["short_lens"]]
+    _, cache, _ = model.prefill(
+        torch.tensor([shared], dtype=torch.int32, device=DEVICE),
+        RESTORE["max_len"])
+    kv = cache["blocks"]["kv"]                  # (L, 1, cap, KV, D)
+    bt = RESTORE["block_tokens"]
+    blocks = [torch.stack([kv["k"][:, 0, t:t + bt], kv["v"][:, 0, t:t + bt]])
+              .contiguous() for t in range(0, RESTORE["prompt_len"], bt)]
+    del cache, kv
+    n_req = 1 + len(RESTORE["short_lens"])
+    runs, dequant_launches = {}, 0
+    for q in ("", "fp8", "int8"):
+        run = _restore_run(model, q, blocks, shared, shorts)
+        stats, counts = run["stats"], run["counts"]
+        name = q or "bf16"
+        check(run["hits"] == (len(blocks),
+                              len(blocks) * blocks[0].nbytes),
+              f"restore {name}: {run['hits']} restored")
+        check(stats["finished"] == n_req, f"restore {name}: "
+              f"{stats['finished']} of {n_req} requests finished")
+        want = {"flash_attention": n_req * cfg.n_layers,
+                "paged_attention": stats["steps"] * cfg.n_layers,
+                "mlstm_scan": 0, "dequant": len(blocks) if q else 0}
+        check(counts == want, f"restore {name}: kernel launches {counts}, "
+                              f"expected {want}")
+        checked = _check_restored(q, run["mgr"], blocks)
+        dequant_launches += counts["dequant"]
+        runs[q] = run
+        vt = stats["virtual_time_s"]
+        print(f"restore under decode {cfg.name} {name}: {len(blocks)} blocks "
+              f"of {blocks[0].nbytes} bytes ({tuple(blocks[0].shape)} "
+              f"{blocks[0].dtype}), {stats['total_tokens']} tokens, "
+              f"{stats['steps']} decode steps; launches {counts}; tape ok "
+              f"({run['tape'].n_crossings()} crossings); {checked}")
+        print(f"  modelled (virtual clock, B300 bridge profile, CC on, "
+              f"bridge_opt): virtual_time_s {vt!r} tok/s "
+              f"{stats['total_tokens'] / vt!r} restore wire bytes "
+              f"{run['restore_wire']} raw bytes {run['restore_raw']} "
+              f"dequant_s {run['dequant_s']!r}")
+        print(f"  measured on the card: restore wall "
+              f"{run['restore_wall']:.4f} s (spilled blocks up, widened); "
+              f"run wall {run['run_wall']:.4f} s, decode "
+              f"{run['decode_tokens']} tokens = "
+              f"{run['decode_tokens'] / run['run_wall']:.1f} decode tok/s")
+    base = runs[""]
+    for q in ("fp8", "int8"):
+        check(runs[q]["tokens"] == base["tokens"],
+              f"restore {q}: greedy tokens differ from the unquantized run")
+        ratio = runs[q]["restore_wire"] / base["restore_wire"]
+        print(f"restore {q}: wire bytes {ratio:.6f} of the unquantized "
+              f"run's; tokens identical to it")
+        check(ratio <= 0.55, f"restore {q}: wire ratio {ratio} > 0.55")
+    return dequant_launches
+
+
 def mlstm_work(b, s, h, dk, dv, chunk) -> tuple:
     """Operations and bytes a chunked mLSTM scan from the empty state needs
     on these shapes (f32 inputs).  Per chunk of L steps and head: the
@@ -649,12 +911,75 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
           f"ms ({by}; {flops / 1e9:.3f} GFLOP on the f32 peak, "
           f"{nbytes / 1e6:.1f} MB)")
     _kernel_breakdown(lambda: ml.mlstm_scan(*args, chunk=chunk), "mlstm")
+    del args
+
+    # dequant at one restored block's shape: a full-width olmo-1b KV block
+    # of 1,048,576 values is 8,192 quant blocks; 64 sets cycled so each
+    # launch reads its codes from device memory (66 MB of codes and scales
+    # > the 50 MB L2; the 4 MiB output is one buffer the allocator hands
+    # back each call); no single PyTorch call
+    # computes this function, so the two-op expression the plain version
+    # is written as is timed beside it, labelled as such.  A call this
+    # short is bound by its host-side dispatch when calls run back to back
+    # (CUDA events then time the dispatch), so the profiler's device time
+    # per call is taken too
+    from repro_torch.kernels.dequant import ops as dq
+    from repro_torch.kernels.dequant.ref import CODE_DTYPES, dequant_ref
+    nblocks, sets = 8192, 64
+    codes = torch.randint(0, 256, (sets, nblocks, 128), generator=gen,
+                          device=DEVICE, dtype=torch.int32).to(torch.uint8)
+    scales = torch.rand((sets, nblocks), generator=gen, device=DEVICE)
+    scales2d = scales[:, :, None].contiguous()
+    nbytes = nblocks * 128 * (1 + 4) + nblocks * 4
+    bms, by = bound(nblocks * 128, nbytes, PEAK_F32_FLOPS)
+    per_codec = {}
+
+    def rotate(fn):
+        def call():
+            i = turn[0] = (turn[0] + 1) % sets
+            return fn(i)
+        return call
+
+    for codec in ("fp8", "int8"):
+        ms = time_ms(rotate(lambda i: dq.dequant(codes[i], scales[i],
+                                                 codec=codec)), iters=160)
+        plain = time_ms(rotate(lambda i: dequant_ref(
+            codes[i], scales2d[i], codec=codec)), iters=160)
+        expr = time_ms(rotate(lambda i: codes[i].view(
+            CODE_DTYPES[codec]).float() * scales2d[i]), iters=160)
+        device = _kernel_breakdown(rotate(lambda i: dq.dequant(
+            codes[i], scales[i], codec=codec)), f"dequant {codec} kernel")
+        plain_device = _kernel_breakdown(rotate(lambda i: dequant_ref(
+            codes[i], scales2d[i], codec=codec)), f"dequant {codec} plain")
+        per_codec[codec] = dict(ms=ms, plain_ms=plain, torch_expr_ms=expr,
+                                device_ms=device,
+                                plain_device_ms=plain_device)
+        print(f"timing dequant {codec} ({nblocks} x 128 codes, one restored "
+              f"block): kernel {ms:.5f} ms (device {device} ms), plain "
+              f"{plain:.5f} ms (device {plain_device} ms), two-op torch "
+              f"expression codes.view({CODE_DTYPES[codec]}).float() * scales "
+              f"{expr:.5f} ms, bound {bms:.5f} ms ({by}; {nbytes} bytes)")
+    # the row's ms and plain_ms are device time per call (the profiler's),
+    # where the profiler saw the device; the event times ride beside them
+    fp8 = per_codec["fp8"]
+    rows.append(dict(
+        name="dequant", route="cuda",
+        source="src/repro_torch/kernels/dequant/csrc/dequant.cu",
+        replaces="src/repro/kernels/dequant/dequant.py:50",
+        launches=launches["dequant"], max_abs_err=errs["dequant"],
+        ms=fp8["device_ms"] or fp8["ms"],
+        plain_ms=fp8["plain_device_ms"] or fp8["plain_ms"],
+        bound_ms=bms, bound_by=by, library_ms=None,
+        torch_expr_ms=fp8["torch_expr_ms"], events_ms=fp8["ms"],
+        plain_events_ms=fp8["plain_ms"], codec="fp8",
+        int8=per_codec["int8"]))
     return rows
 
 
-def _kernel_breakdown(fn, label: str, calls: int = 10) -> None:
+def _kernel_breakdown(fn, label: str, calls: int = 10):
     """Device time per call of each kernel ``fn`` launches (torch.profiler
-    over ``calls`` calls after one warm-up)."""
+    over ``calls`` calls after one warm-up), printed; returns their sum in
+    ms per call, or None where the profiler saw no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -669,14 +994,16 @@ def _kernel_breakdown(fn, label: str, calls: int = 10) -> None:
     rows = [(us, key) for us, key in rows if us > 0]
     if not rows:
         print(f"  {label} per kernel: not measured (no device events)")
-        return
+        return None
+
     def short(key):   # "void (anonymous namespace)::name<T>(...)" -> name
         key = key.replace("(anonymous namespace)::", "")
         return key.split("(")[0].split("<")[0].split()[-1]
 
     print(f"  {label} per kernel, ms per call: " + "; ".join(
-        f"{short(key)} {us / calls / 1e3:.4f}"
+        f"{short(key)} {us / calls / 1e3:.5f}"
         for us, key in sorted(rows, reverse=True)))
+    return sum(us for us, _ in rows) / calls / 1e3
 
 
 def main() -> None:
@@ -696,7 +1023,8 @@ def main() -> None:
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     errs = {"flash_attention": phase_flash(gen),
             "paged_attention": phase_paged(gen),
-            "mlstm_scan": phase_mlstm(gen)}
+            "mlstm_scan": phase_mlstm(gen),
+            "dequant": phase_dequant(gen)}
 
     # olmo-1b: flash prefill, paged decode
     t0 = time.perf_counter()
@@ -708,8 +1036,10 @@ def main() -> None:
     layers = model.cfg.n_layers
     launches = phase_main(model, lambda stats, n_req: {
         "flash_attention": n_req * layers,
-        "paged_attention": stats["steps"] * layers, "mlstm_scan": 0})
+        "paged_attention": stats["steps"] * layers, "mlstm_scan": 0,
+        "dequant": 0})
     phase_profile(model)
+    launches["dequant"] += phase_restore(model)
     del model
     torch.cuda.empty_cache()
 
@@ -732,7 +1062,7 @@ def main() -> None:
     phase_xlstm_model_check(model)
     x_launches = phase_main(model, lambda stats, n_req: {
         "flash_attention": 0, "paged_attention": 0,
-        "mlstm_scan": n_req * n_mlstm})
+        "mlstm_scan": n_req * n_mlstm, "dequant": 0})
     phase_profile(model)
     del model
     torch.cuda.empty_cache()

@@ -24,6 +24,7 @@ SOURCES = {
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "paged_attention": _PKG / "paged_attention" / "csrc" / "paged_attention.cu",
     "mlstm_scan": _PKG / "mlstm_scan" / "csrc" / "mlstm_scan.cu",
+    "dequant": _PKG / "dequant" / "csrc" / "dequant.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

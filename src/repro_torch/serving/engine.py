@@ -29,10 +29,15 @@ Differences from the reference:
     and no power-of-two bucket: the packed step runs at exactly the packed
     width (accounting, which prices that width in both packages, is
     unchanged);
-  * bridge_opt (staging arena, coalescer) and tensor-parallel pricing
-    are not ported yet: defaults or a compute model that ask for them
-    raise ``NotImplementedError``.  Nor is the resilience layer's
-    degradation ladder: no step runs degraded.
+  * with bridge_opt on (``cc_aware_defaults(..., bridge_opt=True)``)
+    staging goes through a ``StagingArena`` and sub-threshold crossings
+    through a ``CrossingCoalescer``, as in the reference; the tensors a
+    coalesced upload returns are real uploads, so the model still reads
+    what crossed;
+  * tensor-parallel pricing is not ported yet: a compute model that asks
+    for it raises ``NotImplementedError``.  Nor is the resilience layer's
+    degradation ladder: no step runs degraded and the coalescer is never
+    bypassed.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.bridge_opt import CrossingCoalescer, StagingArena
 from repro_torch.core.bridge import TPU_V5E, BridgeModel
 from repro_torch.core.channels import VirtualClock
 from repro_torch.core.compute import ComputeModel
@@ -120,21 +126,26 @@ class ServingEngine:
         self.max_len = max_len
         self.bridge = bridge or BridgeModel(TPU_V5E, cc_on=cc_on)
         self.defaults = defaults or cc_aware_defaults(self.bridge.cc_on)
-        if (self.defaults.staging_arena_bytes
-                or self.defaults.coalesce_small_crossings):
-            raise NotImplementedError(
-                "bridge_opt (staging_arena_bytes, coalesce_small_crossings) "
-                "is not ported to PyTorch yet (ROADMAP.md, Queue 1 item 4)")
         self.policy = policy or self.defaults.scheduling
         if gateway is None:
+            # bridge_opt: staging becomes a budgeted arena when defaults ask
+            arena = (StagingArena(self.defaults.staging_arena_bytes)
+                     if self.defaults.staging_arena_bytes else None)
             gateway = TransferGateway(
                 self.bridge, self.defaults,
                 pool_workers=self.defaults.loader_pool_workers or 1,
-                device=self.device)
+                device=self.device, arena=arena)
         elif gateway.device != self.device:
             raise ValueError(f"gateway uploads to {gateway.device}, engine "
                              f"runs on {self.device}")
         self.gateway = gateway
+        #: bridge_opt: sub-threshold crossings queue here and flush fused.
+        #: Under WORKER_DRAIN the worker takes the fused D2H flushes off the
+        #: engine clock (worker x coalescer composition).
+        self.coalescer = (CrossingCoalescer(
+            self.gateway,
+            worker_flush=self.policy is SchedulingPolicy.WORKER_DRAIN)
+            if self.defaults.coalesce_small_crossings else None)
         self.clock: VirtualClock = self.gateway.clock
         #: compute-charged clock: per-step prefill/decode compute priced by
         #: the roofline and charged like any interval
@@ -175,8 +186,16 @@ class ServingEngine:
         #: is surfaced loudly (closed_dirty + RuntimeWarning)
         self.drain_join_timeout_s: float = 5.0
         self.closed_dirty = False
+        # worker x coalescer composition: with a coalescer the drains queue
+        # and the worker's seat is a secure channel the fused flushes
+        # serialize on — prewarm the pool so the first flush never pays
+        # context creation.  Without one the worker is a real thread doing
+        # blocking drains.
         if self.policy is SchedulingPolicy.WORKER_DRAIN:
-            self._start_worker()
+            if self.coalescer is None:
+                self._start_worker()
+            else:
+                self.gateway.pool.prewarm()
 
     # -- worker thread (v10c) --------------------------------------------------------
 
@@ -193,6 +212,8 @@ class ServingEngine:
         self._worker.start()
 
     def close(self):
+        if self.coalescer is not None:
+            self.coalescer.barrier()
         if self._worker is not None:
             self._drain_q.put(None)
             self._worker.join(timeout=self.drain_join_timeout_s)
@@ -260,11 +281,15 @@ class ServingEngine:
             self.obs.spans.on_admit(req.request_id, self.clock.now)
         # first read of restored KV happens here: the barrier is the law
         waited = self.overlap.restore_barrier(req.request_id)
-        if waited and self.obs is not None:
-            self.obs.spans.on_restore_wait(req.request_id, waited)
+        if waited:
+            self._poll()                # the barrier wait moved the clock
+            if self.obs is not None:
+                self.obs.spans.on_restore_wait(req.request_id, waited)
         prompt = np.asarray(req.prompt, np.int32)[None]     # (1, P)
-        # prompt upload crosses the bridge; the model reads what it moved
-        prompt_dev = self.gateway.h2d(prompt, op_class=oc.PROMPT_H2D)
+        # prompt upload crosses the bridge (coalesced when bridge_opt is
+        # on); the model reads what it moved
+        up = self.coalescer or self.gateway
+        prompt_dev = up.h2d(prompt, op_class=oc.PROMPT_H2D)
         logits, pre_cache, idx0 = self.model.prefill(prompt_dev, self.max_len)
         if self.compute is not None:
             cold = max(0, len(req.prompt) - req.warm_tokens)
@@ -273,9 +298,10 @@ class ServingEngine:
                 self.gateway.charge_compute(
                     charge.seconds, op_class=oc.PREFILL_COMPUTE,
                     bound=charge.bound)
+                self._poll()            # prefill compute moved the clock
         self._insert_slot_cache(pre_cache, slot)
         first = sample(logits, self.generator, req.sampling)
-        first_host = self.gateway.d2h(first, op_class=oc.SAMPLE_D2H)
+        first_host = up.d2h(first, op_class=oc.SAMPLE_D2H)
         tok = int(first_host[0])
         req.output_tokens.append(tok)
         req.first_token_t = self.clock.now
@@ -342,8 +368,10 @@ class ServingEngine:
             nearest = min(
                 deferred, key=lambda s: self.overlap.pending_done_t(key_of[s]))
             waited = self.overlap.restore_barrier(key_of[nearest])
-            if waited and self.obs is not None:
-                self.obs.spans.on_restore_wait(key_of[nearest], waited)
+            if waited:
+                self._poll()            # the barrier wait moved the clock
+                if self.obs is not None:
+                    self.obs.spans.on_restore_wait(key_of[nearest], waited)
             mask = self.overlap.ready_mask(key_of)
             ready = [s for s in slots if mask[s]]
             deferred = [s for s in slots if not mask[s]]
@@ -351,6 +379,10 @@ class ServingEngine:
             self.overlap.restore_barrier(key_of[s])
         for s in deferred:
             self.overlap.record_slot_deferral(key_of[s])
+        if deferred:
+            # deferral masks slots, never flushes: crossings queued by
+            # deferred slots keep aging toward the coalescer's deadline
+            self._poll(source="deferral")
         return ready, deferred
 
     def step(self) -> int:
@@ -418,6 +450,7 @@ class ServingEngine:
             deferred=len(deferred)))
 
         self._consume(ready, host_tokens, by_position=bool(deferred))
+        self._poll()        # compute moved the clock this step
         return len(ready)
 
     def _step_packed(self, slots: list, ready: list, deferred: list) -> int:
@@ -466,14 +499,28 @@ class ServingEngine:
             deferred=len(deferred), packed=n))
 
         self._consume(ready, host_tokens, by_position=True)
+        self._poll()        # compute moved the clock this step
         return n
 
     # -- shared step plumbing (dense + packed) -----------------------------------------
 
+    def _poll(self, *, source: str = "clock") -> None:
+        """Let the coalescer's aged queues meet their deadline after a
+        charge that moved the clock (no-op without bridge_opt)."""
+        if self.coalescer is not None:
+            self.coalescer.poll(source=source)
+
     def _emit_prep(self, small_inputs: list) -> list:
         """Upload one step's small input arrays under the active policy —
-        fresh staging per array (async, the 44x class) or one batched
-        registered crossing (sync/worker) — and return them on the card."""
+        coalesced (bridge_opt), fresh staging per array (async, the 44x
+        class) or one batched registered crossing (sync/worker) — and
+        return them on the card."""
+        if self.coalescer is not None:
+            prep_class = (oc.ALLOC_H2D
+                          if self.policy is SchedulingPolicy.ASYNC_OVERLAP
+                          else oc.PREP_BATCHED_H2D)
+            return [self.coalescer.h2d(arr, op_class=prep_class)
+                    for arr in small_inputs]
         if self.policy is SchedulingPolicy.ASYNC_OVERLAP:
             return [self.gateway.h2d(arr, op_class=oc.ALLOC_H2D,
                                      reuse_staging=False)
@@ -486,14 +533,22 @@ class ServingEngine:
         slot's KV, so any restore still in flight must land first."""
         if self.defaults.slot_masked_decode or not self.overlap.pending:
             return
+        waited = 0.0
         for s in slots:
             w = self.overlap.restore_barrier(self.active[s].request_id)
             if w and self.obs is not None:
                 self.obs.spans.on_restore_wait(self.active[s].request_id, w)
+            waited += w
+        if waited:
+            self._poll()        # the barrier wait moved the clock
 
     def _drain(self, drain_tokens: torch.Tensor) -> np.ndarray:
         """Drain one step's sampled tokens to the host under the active
         policy (the policy-defining crossing)."""
+        if self.coalescer is not None:
+            # bridge_opt: token values land now; the drain's toll joins the
+            # fused flush
+            return self.coalescer.d2h(drain_tokens, op_class=oc.DRAIN_D2H)
         if self.policy is SchedulingPolicy.WORKER_DRAIN:
             done = threading.Event()
             result = {}
@@ -530,6 +585,8 @@ class ServingEngine:
             if self.step() == 0 and not self.queue:
                 break
             steps += 1
+        if self.coalescer is not None:
+            self.coalescer.barrier()    # nothing queued survives a run
         return self.stats()
 
     def stats(self) -> dict:

@@ -6,8 +6,9 @@ rows out of the resident cache and scatters them back around each step;
 the port has no gather or scatter: decode writes each packed row's new K/V
 in place and the paged kernel reads the resident cache directly
 (``models.transformer.decode_attention``).  The reference's page pool
-(``PagePool``) serves the paged mode and KV offload, which are still to
-port (ROADMAP.md, Queue 1 item 4).
+(``PagePool``), which serves its paged mode and feeds evictions to the
+offload manager, is still to port; the port's ``serving/offload.py`` takes
+its payloads from the caller.
 """
 
 from __future__ import annotations

@@ -187,11 +187,17 @@ def rewrite_for_policy(records: Sequence[TapeRecord],
     return out
 
 
+#: full-width crossing classes a force-quantize counterfactual may shrink
+#: (the classes the engine's kv_quant / weight_quant knobs actually route)
+QUANTIZABLE = frozenset({oc.KV_RESTORE_H2D, oc.KV_RESTORE_PIPELINED,
+                         oc.KV_SPILL_D2H, oc.LOADER_SHARD_H2D})
+
 #: class mapping between the quantized and full-width spellings of a
 #: crossing (pipelined restores and spills keep their class either way —
 #: the QUANTIZED tag / raw_bytes field is what marks them on the tape)
 _UNQUANT_CLASS = {oc.KV_RESTORE_Q: oc.KV_RESTORE_H2D,
                   oc.WEIGHT_SHARD_Q: oc.LOADER_SHARD_H2D}
+_QUANT_CLASS = {v: k for k, v in _UNQUANT_CLASS.items()}
 
 
 def rewrite_for_quant(stream: Sequence[RewrittenCrossing],
@@ -222,11 +228,21 @@ def rewrite_for_quant(stream: Sequence[RewrittenCrossing],
                              nbytes=rc.raw_bytes, raw_bytes=0, codec="")
             out.append(rc)
         return out
-    # force-quantize prices at a codec's wire ratio; the codecs (quant/) are
-    # not part of this package yet
-    raise NotImplementedError(
-        f"quantize lever {lever!r} needs the quant codecs, which the port "
-        f"does not carry yet (ROADMAP.md, Queue 1 item 4)")
+    # force-quantize: validate the codec name and price at its wire ratio
+    from repro_torch.quant import get_codec, wire_bytes as quant_wire
+    codec = get_codec(lever)
+    for rc in stream:
+        if (rc.kind == "crossing" and rc.raw_bytes == 0
+                and rc.op_class in QUANTIZABLE and rc.nbytes > 0):
+            # recorded full-width bytes were bf16-ish KV/weight payloads;
+            # model them at 2-byte elements (the repo's KV dtype) so the
+            # wire ratio matches what the engine's knob would produce
+            wire = quant_wire(rc.nbytes, itemsize=2)
+            rc = replace(rc, op_class=_QUANT_CLASS.get(rc.op_class,
+                                                       rc.op_class),
+                         nbytes=wire, raw_bytes=rc.nbytes, codec=codec.name)
+        out.append(rc)
+    return out
 
 
 @dataclass

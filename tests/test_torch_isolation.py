@@ -51,7 +51,14 @@ print(json.dumps({"modules": mods, "bad": bad}))
     assert "repro_torch.kernels.paged_attention.ops" in result["modules"]
     for name in ("repro_torch.kernels.mlstm_scan.ops",
                  "repro_torch.kernels.mlstm_scan.ref",
-                 "repro_torch.models.ssm", "repro_torch.configs.xlstm_1p3b"):
+                 "repro_torch.models.ssm", "repro_torch.configs.xlstm_1p3b",
+                 "repro_torch.quant.codecs",
+                 "repro_torch.kernels.dequant.ops",
+                 "repro_torch.kernels.dequant.ref",
+                 "repro_torch.bridge_opt.arena",
+                 "repro_torch.bridge_opt.coalescer",
+                 "repro_torch.bridge_opt.restore",
+                 "repro_torch.serving.offload"):
         assert name in result["modules"]
     assert result["bad"] == []
 
