@@ -13,7 +13,10 @@ kernels (launch counters: flash + paged for olmo-1b, the chunked mLSTM scan
 for xlstm-1.3b, dequant once per quantized block restored) and that its
 crossing tapes obey the bridge law, profiles a decode step of each model,
 and times each kernel, its plain version and the PyTorch call computing the
-same function, where there is one.  It prints
+same function, where there is one (device time by the profiler for the
+attention kernels and dequant; the flash kernel at each of the main path's
+prompt lengths and at 4096, beside a build of it with P in one bf16
+term).  It prints
 the card's name and power limit, one ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the repository's ``src`` beside it, it exits non-zero and prints
@@ -34,6 +37,10 @@ import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BF16_TOL = 3e-2
+#: each flash case is also held to its output's own size: rel L2 of the
+#: kernel against the plain version (bf16 rounding of the output alone is
+#: ~2^-9 relative; a dropped or misweighted KV tile moves it far more)
+FLASH_REL_L2 = 1e-2
 #: the mLSTM scan's tolerances, tests/test_kernels.py's: rtol 1e-5 with atol
 #: 5e-4 (f32) or 1e-1 (bf16), mean error below 1e-5 (f32) or 1e-3 (bf16)
 MLSTM_TOL = {torch.float32: (5e-4, 1e-5), torch.bfloat16: (1e-1, 1e-3)}
@@ -47,6 +54,9 @@ PEAK_HBM_BYTES = 3.35e12
 DEVICE = "cuda"
 MAIN = dict(max_batch=8, max_len=1024, new_tokens=32,
             prompt_lens=[16, 87, 158, 229, 299, 370, 441, 512])
+#: the long prompt at which the flash kernel is timed beside the main path's
+#: lengths (operations bound it there, bytes at the main path's)
+LONG_PROMPT = 4096
 #: the restore-under-decode path: a shared prompt spilled as KV blocks of
 #: ``block_tokens`` and restored (pipelined, ``chunk_bytes`` chunks) for the
 #: request that re-reads it while three short requests decode
@@ -123,7 +133,10 @@ def phase_build() -> None:
           f"({', '.join(sorted(logs))})")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                entry = line.split("ptxas info")[-1].strip()
+                print(f"  ptxas {name}: {entry}")
+            elif "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
 
@@ -132,27 +145,49 @@ def _randn(gen, *shape):
 
 
 def phase_flash(gen) -> float:
+    """Every case within BF16_TOL (max abs) and FLASH_REL_L2 (rel L2) of
+    the plain version; returns the worst max abs error."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    # olmo-1b's heads at 1 token, ragged lengths, the main path's largest
+    # prompt and beyond; GQA (H40/KV8); a window; cross-attention
     cases = [dict(b=1, sq=s, sk=s, h=16, kv=16, d=128, causal=True)
              for s in (1, 17, 128, 500, 1024)]
     cases += [dict(b=1, sq=512, sk=512, h=40, kv=8, d=128, causal=True),
               dict(b=2, sq=300, sk=300, h=16, kv=4, d=128, causal=True,
                    window=100),
               dict(b=2, sq=96, sk=384, h=8, kv=4, d=64, causal=False)]
+    # for the tensor-core fragment paths: lengths just under and over one
+    # 64-key tile (63, 65), S=4096 (the long, operations-bound shape), GQA
+    # H40/KV8 at 2048, and D=32.  They draw from a generator of their own,
+    # so every later phase's inputs stay those of earlier runs (the mLSTM
+    # check's per-element slack is sensitive to its draw: ROADMAP Queue 3)
+    added = [dict(b=1, sq=s, sk=s, h=16, kv=16, d=128, causal=True)
+             for s in (63, 65, 4096)]
+    added += [dict(b=1, sq=2048, sk=2048, h=40, kv=8, d=128, causal=True),
+              dict(b=2, sq=200, sk=200, h=8, kv=2, d=32, causal=True),
+              dict(b=1, sq=333, sk=333, h=4, kv=4, d=32, causal=True,
+                   window=70),
+              dict(b=2, sq=100, sk=257, h=4, kv=2, d=32, causal=False)]
+    own = torch.Generator(device=DEVICE).manual_seed(1)
     worst = 0.0
-    for c in cases:
-        q = _randn(gen, c["b"], c["sq"], c["h"], c["d"])
-        k = _randn(gen, c["b"], c["sk"], c["kv"], c["d"])
-        v = _randn(gen, c["b"], c["sk"], c["kv"], c["d"])
+    for c, g in [(c, gen) for c in cases] + [(c, own) for c in added]:
+        q = _randn(g, c["b"], c["sq"], c["h"], c["d"])
+        k = _randn(g, c["b"], c["sk"], c["kv"], c["d"])
+        v = _randn(g, c["b"], c["sk"], c["kv"], c["d"])
         kw = dict(causal=c["causal"], window=c.get("window"))
-        out = ops.flash_attention(q, k, v, **kw)
+        out = ops.flash_attention(q, k, v, **kw).float()
         torch.cuda.synchronize()
-        err = (out.float() - flash_attention_ref(q, k, v, **kw).float()
-               ).abs().max().item()
-        print(f"flash {c}: max_abs_err {err:.3g}")
+        ref = flash_attention_ref(q, k, v, **kw).float()
+        err = (out - ref).abs().max().item()
+        rel = _rel(out, ref)
+        print(f"flash {c}: max_abs_err {err:.3g} rel_l2 {rel:.3g} "
+              f"(output rms {ref.pow(2).mean().sqrt().item():.3g})")
         check(math.isfinite(err) and err <= BF16_TOL,
               f"flash kernel disagrees with its plain version at {c}: {err}")
+        check(math.isfinite(rel) and rel <= FLASH_REL_L2,
+              f"flash kernel disagrees with its plain version at {c}: rel "
+              f"L2 {rel}")
         worst = max(worst, err)
     return worst
 
@@ -263,7 +298,8 @@ def _mlstm_compare(args, kw, where) -> tuple:
         mean = float(err.mean())
         e = float(err.max())
         report.append(f"{name} max_abs_err {e:.3g} mean {mean:.3g} "
-                      f"(plain vs f64 {float((plain - exact).abs().max()):.3g}"
+                      f"(kernel vs f64 {float((got - exact).abs().max()):.3g}"
+                      f", plain vs f64 {float((plain - exact).abs().max()):.3g}"
                       f", {used} within its slack)")
         check(math.isfinite(e) and bad == 0
               and (name != "y" or mean < mean_bound),
@@ -364,7 +400,7 @@ def phase_model_check(model) -> None:
         layers.attention_core, transformer.pa_ops.paged_attention = core, paged
     rel = _rel(kernel, plain)
     print(f"model check ({model.cfg.name}, 100-token prefill + 4 decode "
-          f"steps): kernels vs plain versions, logits rel L2 {rel:.3g}; "
+          f"steps): kernels vs plain versions, logits rel L2 {rel:.4g}; "
           f"finite {bool(torch.isfinite(kernel).all())}")
     check(bool(torch.isfinite(kernel).all()) and rel <= 2e-2,
           f"model with kernels disagrees with plain versions: {rel}")
@@ -823,38 +859,103 @@ def mlstm_work(b, s, h, dk, dv, chunk) -> tuple:
     return b * h * flops, nbytes
 
 
-def phase_timings(gen, launches: dict, errs: dict) -> list:
+def _time_flash(gen, launches: dict, errs: dict) -> dict:
+    """The flash kernel and SDPA (the one PyTorch call computing the same
+    function) at olmo-1b's heads, causal, B=1, at each of the main path's
+    prompt lengths and at LONG_PROMPT: device time per call (the profiler's; at
+    these sizes events over back-to-back calls partly time the host's
+    dispatch, and are printed beside it).  Prints the sums over one main
+    path run's prefills (one launch per prompt and layer) and the share of
+    the bound at LONG_PROMPT.  Returns the kernels row, timed at S=512.
+    Event times never stand in for a device time: SDPA's is None where the
+    profiler saw no device events, and so is any sum that needs it."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.paged_attention import ops as pa
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    rows = []
+    layers, h, d = 16, 16, 128                   # olmo-1b
+    per_len = {}
+    for s in sorted(set(MAIN["prompt_lens"]) | {LONG_PROMPT}):
+        q, k, v = (_randn(gen, 1, s, h, d) for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
-    # flash at the main path's largest prompt: olmo-1b, S = 512, causal
-    b, s, h, d = 1, max(MAIN["prompt_lens"]), 16, 128
-    q, k, v = (_randn(gen, b, s, h, d) for _ in range(3))
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-    plain = time_ms(lambda: flash_attention_ref(q, k, v, causal=True))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    pairs = s * (s + 1) // 2                      # causal (q, k) pairs
-    bms, by = bound(4.0 * b * h * d * pairs, 4 * b * s * h * d * 2)
-    rows.append(dict(
+        def kernel():
+            return fa.flash_attention(q, k, v, causal=True)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        ev, lib_ev = time_ms(kernel), time_ms(sdpa)
+        got = _in_turns(dict(kernel=kernel, sdpa=sdpa), f"flash S={s}")
+        dev = _measured(got["kernel"], f"the flash kernel at S={s}")
+        lib_dev = got["sdpa"]
+        pairs = s * (s + 1) // 2                  # causal (q, k) pairs
+        bms, by = bound(4.0 * h * d * pairs, 4 * s * h * d * 2)
+        per_len[s] = dict(ms=dev, library_ms=lib_dev, events_ms=ev,
+                          library_events_ms=lib_ev, bound_ms=bms, bound_by=by)
+        print(f"timing flash (B=1 S={s} H={h} D={d} causal): kernel {dev} ms "
+              f"device ({ev:.4f} events), sdpa {_ms(lib_dev)} "
+              f"({lib_ev:.4f} events), bound {bms:.5f} ms ({by}); kernel / "
+              f"sdpa {_ratio(dev, lib_dev)}")
+        if s == max(MAIN["prompt_lens"]):
+            plain_ev = time_ms(lambda: flash_attention_ref(q, k, v,
+                                                           causal=True))
+            plain_dev = _kernel_breakdown(
+                lambda: flash_attention_ref(q, k, v, causal=True),
+                f"flash S={s} plain")
+            per_len[s].update(
+                plain_ms=_measured(plain_dev, f"flash's plain version at "
+                                              f"S={s}"),
+                plain_events_ms=plain_ev)
+        del q, k, v, qt, kt, vt
+    run = {key: _sum([per_len[s][key] for s in MAIN["prompt_lens"]], layers)
+           for key in ("ms", "library_ms", "events_ms", "library_events_ms",
+                       "bound_ms")}
+    print(f"timing flash over one main path run's {len(MAIN['prompt_lens'])} "
+          f"prefills ({layers} launches each): kernel {run['ms']:.4f} ms "
+          f"device ({run['events_ms']:.4f} events), sdpa "
+          f"{_ms(run['library_ms'])} ({run['library_events_ms']:.4f}"
+          f" events), bound {run['bound_ms']:.4f} ms")
+    long = per_len[LONG_PROMPT]
+    print(f"timing flash at S={LONG_PROMPT}: kernel {long['ms']:.4f} ms = "
+          f"{long['bound_ms'] / long['ms']:.4f} of its {long['bound_by']} "
+          f"bound ({long['bound_ms']:.5f} ms; each product counted once, "
+          f"bf16 at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s); sdpa "
+          f"{_ms(long['library_ms'])} = "
+          f"{_ratio(long['bound_ms'], long['library_ms'])}")
+    main = per_len[max(MAIN["prompt_lens"])]
+    return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:90",
         launches=launches["flash_attention"],
-        max_abs_err=errs["flash_attention"], ms=ms, plain_ms=plain,
-        bound_ms=bms, bound_by=by, library_ms=lib))
-    print(f"timing flash (B={b} S={s} H={h} D={d} causal): kernel {ms:.4f} ms, "
-          f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.5f} ms ({by})")
+        max_abs_err=errs["flash_attention"], ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"],
+        events_ms=main["events_ms"], plain_events_ms=main["plain_events_ms"],
+        library_events_ms=main["library_events_ms"],
+        per_prompt_len={s: [per_len[s]["ms"], per_len[s]["library_ms"]]
+                        for s in sorted(per_len)},
+        main_run_ms=run["ms"], main_run_library_ms=run["library_ms"],
+        long_prompt=LONG_PROMPT, long_prompt_ms=long["ms"],
+        long_prompt_library_ms=long["library_ms"],
+        long_prompt_bound_share=long["bound_ms"] / long["ms"])
 
-    # paged at the main path's decode shape, mid-run: 8 slots of a
-    # 1024-token cache, lengths = prompt + 16; 16 layers' caches cycled so
-    # every launch reads its pages from device memory, as a decode step does
-    b, kv, page, layers = len(MAIN["prompt_lens"]), 16, 16, 16
+
+def _time_paged(gen, launches: dict, errs: dict) -> dict:
+    """The paged kernel at the main path's decode shape, mid-run: 8 slots
+    of a 1024-token cache, lengths = prompt + 16; 16 layers' caches cycled
+    so every launch reads its pages from device memory, as a decode step
+    does.  Beside it the one PyTorch call computing the same function on
+    the engine's identity block table: SDPA over the slot cache (B, cap,
+    KV, D) that the pages view, with a length mask (checked against the
+    kernel once).  ms, plain_ms and library_ms are device time per call
+    (the profiler's; library_ms None where it saw no device events), events
+    beside them."""
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    b, h, kv, d, page, layers = len(MAIN["prompt_lens"]), 16, 16, 128, 16, 16
     pages_max = MAIN["max_len"] // page
+    cap = pages_max * page
     lengths = [n + 16 for n in MAIN["prompt_lens"]]
     qd = _randn(gen, b, h, d)
     shape = (layers, b * pages_max, page, kv, d)
@@ -863,6 +964,8 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
     bt = (torch.arange(b, device=DEVICE)[:, None] * pages_max
           + torch.arange(pages_max, device=DEVICE)[None, :]).to(torch.int32)
     ln = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+    mask = (torch.arange(cap, device=DEVICE)[None, :] < ln[:, None]
+            )[:, None, None]                       # (B, 1, 1, cap)
     turn = [0]
 
     def cycled(fn):
@@ -871,23 +974,66 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
             return fn(qd, kc[i], vc[i], bt, ln)
         return call
 
-    ms = time_ms(cycled(pa.paged_attention), iters=64)
-    plain = time_ms(cycled(paged_attention_ref), iters=16)
+    def sdpa(q, kp, vp, _bt, _ln):
+        ck, cv = (t.view(b, cap, kv, d).transpose(1, 2) for t in (kp, vp))
+        return F.scaled_dot_product_attention(
+            q[:, :, None], ck, cv, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+    args = (qd, kc[0], vc[0], bt, ln)
+    lib_err = (sdpa(*args).float() - pa.paged_attention(*args).float()
+               ).abs().max().item()
+    check(math.isfinite(lib_err) and lib_err <= BF16_TOL,
+          f"SDPA over the slot cache is not the paged kernel's function: "
+          f"{lib_err}")
+    ev = time_ms(cycled(pa.paged_attention), iters=64)
+    plain_ev = time_ms(cycled(paged_attention_ref), iters=16)
+    lib_ev = time_ms(cycled(sdpa), iters=64)
+    got = _in_turns(dict(kernel=cycled(pa.paged_attention),
+                         sdpa=cycled(sdpa)), "paged")
+    dev = _measured(got["kernel"], "the paged kernel")
+    lib_dev = got["sdpa"]
+    plain_dev = _measured(_kernel_breakdown(cycled(paged_attention_ref),
+                                            "paged plain"),
+                          "paged's plain version")
     tokens = sum(lengths)
     nbytes = (2 * b * h * d * 2 + tokens * kv * d * 2 * 2
               + bt.numel() * 4 + ln.numel() * 4)
     bms, by = bound(4.0 * h * d * tokens, nbytes)
-    rows.append(dict(
+    print(f"timing paged (B={b} H={h} KV={kv} D={d} page={page} "
+          f"lengths={lengths}): kernel {dev} ms device ({ev:.4f} events), "
+          f"plain {plain_dev} ms device ({plain_ev:.4f} events), sdpa over "
+          f"the slot cache with a length mask {_ms(lib_dev)} "
+          f"({lib_ev:.4f} events; max_abs_err vs the kernel {lib_err:.3g}), "
+          f"bound {bms:.5f} ms ({by})")
+    return dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention/paged_attention.py:76",
         launches=launches["paged_attention"],
-        max_abs_err=errs["paged_attention"], ms=ms, plain_ms=plain,
-        bound_ms=bms, bound_by=by, library_ms=None))
-    print(f"timing paged (B={b} H={h} KV={kv} D={d} page={page} "
-          f"lengths={lengths}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"bound {bms:.5f} ms ({by})")
-    del kc, vc
+        max_abs_err=errs["paged_attention"], ms=dev, plain_ms=plain_dev,
+        bound_ms=bms, bound_by=by, library_ms=lib_dev, events_ms=ev,
+        plain_events_ms=plain_ev,
+        library_events_ms=lib_ev)
+
+
+def _clocks() -> str:
+    """The card's SM clock (now and its maximum), memory clock, power draw
+    and temperature, as nvidia-smi reads them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,"
+         "power.draw,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip() or f"not read ({smi.stderr.strip()})"
+
+
+def phase_timings(gen, launches: dict, errs: dict) -> list:
+    print(f"card before the timings (sm clock, max sm clock, memory clock, "
+          f"power, temperature): {_clocks()}")
+    rows = []
+
+    rows.append(_time_flash(gen, launches, errs))
+    print(f"card after the flash timings: {_clocks()}")
+    rows.append(_time_paged(gen, launches, errs))
 
     # mLSTM at the main path's longest prefill: xlstm-1.3b, one 512-token
     # prompt (two 256-step chunks) from the empty state, f32 as the model
@@ -896,8 +1042,15 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
     from repro_torch.kernels.mlstm_scan.ref import mlstm_chunked_ref
     b, s, h, dk, dv, chunk = 1, max(MAIN["prompt_lens"]), 4, 512, 1024, 256
     args, _ = _mlstm_inputs(gen, b, s, h, dk, dv, torch.float32, False)
-    ms = time_ms(lambda: ml.mlstm_scan(*args, chunk=chunk))
-    plain = time_ms(lambda: mlstm_chunked_ref(*args, chunk=chunk), iters=5)
+    ev = time_ms(lambda: ml.mlstm_scan(*args, chunk=chunk))
+    plain_ev = time_ms(lambda: mlstm_chunked_ref(*args, chunk=chunk),
+                       iters=5)
+    ms = _measured(_kernel_breakdown(
+        lambda: ml.mlstm_scan(*args, chunk=chunk), "mlstm"),
+        "the mLSTM kernel")
+    plain = _measured(_kernel_breakdown(
+        lambda: mlstm_chunked_ref(*args, chunk=chunk), "mlstm plain",
+        show=False), "mLSTM's plain version")
     flops, nbytes = mlstm_work(b, s, h, dk, dv, chunk)
     bms, by = bound(flops, nbytes, PEAK_F32_FLOPS)
     rows.append(dict(
@@ -905,12 +1058,13 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
         source="src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
         replaces="src/repro/kernels/mlstm_scan/mlstm_scan.py:83",
         launches=launches["mlstm_scan"], max_abs_err=errs["mlstm_scan"],
-        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None))
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+        events_ms=ev, plain_events_ms=plain_ev))
     print(f"timing mlstm (B={b} S={s} H={h} dk={dk} dv={dv} chunk={chunk}, "
-          f"f32): kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.5f} "
+          f"f32): kernel {ms:.4f} ms device ({ev:.4f} events), plain "
+          f"{plain:.4f} ms device ({plain_ev:.4f} events), bound {bms:.5f} "
           f"ms ({by}; {flops / 1e9:.3f} GFLOP on the f32 peak, "
           f"{nbytes / 1e6:.1f} MB)")
-    _kernel_breakdown(lambda: ml.mlstm_scan(*args, chunk=chunk), "mlstm")
     del args
 
     # dequant at one restored block's shape: a full-width olmo-1b KV block
@@ -932,7 +1086,7 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
     scales2d = scales[:, :, None].contiguous()
     nbytes = nblocks * 128 * (1 + 4) + nblocks * 4
     bms, by = bound(nblocks * 128, nbytes, PEAK_F32_FLOPS)
-    per_codec = {}
+    per_codec, turn = {}, [0]
 
     def rotate(fn):
         def call():
@@ -947,10 +1101,12 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
             codes[i], scales2d[i], codec=codec)), iters=160)
         expr = time_ms(rotate(lambda i: codes[i].view(
             CODE_DTYPES[codec]).float() * scales2d[i]), iters=160)
-        device = _kernel_breakdown(rotate(lambda i: dq.dequant(
-            codes[i], scales[i], codec=codec)), f"dequant {codec} kernel")
-        plain_device = _kernel_breakdown(rotate(lambda i: dequant_ref(
-            codes[i], scales2d[i], codec=codec)), f"dequant {codec} plain")
+        device = _measured(_kernel_breakdown(rotate(lambda i: dq.dequant(
+            codes[i], scales[i], codec=codec)), f"dequant {codec} kernel"),
+            f"the dequant kernel ({codec})")
+        plain_device = _measured(_kernel_breakdown(rotate(
+            lambda i: dequant_ref(codes[i], scales2d[i], codec=codec)),
+            f"dequant {codec} plain"), f"dequant's plain version ({codec})")
         per_codec[codec] = dict(ms=ms, plain_ms=plain, torch_expr_ms=expr,
                                 device_ms=device,
                                 plain_device_ms=plain_device)
@@ -959,16 +1115,15 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
               f"{plain:.5f} ms (device {plain_device} ms), two-op torch "
               f"expression codes.view({CODE_DTYPES[codec]}).float() * scales "
               f"{expr:.5f} ms, bound {bms:.5f} ms ({by}; {nbytes} bytes)")
-    # the row's ms and plain_ms are device time per call (the profiler's),
-    # where the profiler saw the device; the event times ride beside them
+    # the row's ms and plain_ms are device time per call (the profiler's);
+    # the event times ride beside them
     fp8 = per_codec["fp8"]
     rows.append(dict(
         name="dequant", route="cuda",
         source="src/repro_torch/kernels/dequant/csrc/dequant.cu",
         replaces="src/repro/kernels/dequant/dequant.py:50",
         launches=launches["dequant"], max_abs_err=errs["dequant"],
-        ms=fp8["device_ms"] or fp8["ms"],
-        plain_ms=fp8["plain_device_ms"] or fp8["plain_ms"],
+        ms=fp8["device_ms"], plain_ms=fp8["plain_device_ms"],
         bound_ms=bms, bound_by=by, library_ms=None,
         torch_expr_ms=fp8["torch_expr_ms"], events_ms=fp8["ms"],
         plain_events_ms=fp8["plain_ms"], codec="fp8",
@@ -976,22 +1131,69 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
     return rows
 
 
-def _kernel_breakdown(fn, label: str, calls: int = 10):
+def _in_turns(fns: dict, label: str) -> dict:
+    """Device time per call of each of ``fns`` (by name), measured in turns
+    a, b, ..., ..., b, a so a drift of the card's clock falls on all alike;
+    the mean of each one's two windows (None where the profiler saw
+    nothing).  Each one's first window is printed."""
+    order = list(fns) + list(fns)[::-1]
+    got = {name: [] for name in fns}
+    for i, name in enumerate(order):
+        ms = _kernel_breakdown(fns[name], f"{label} {name}",
+                               show=i < len(fns))
+        if ms is not None:
+            got[name].append(ms)
+    return {name: sum(v) / len(v) if v else None for name, v in got.items()}
+
+
+def _measured(ms, what: str) -> float:
+    """A device time the kernels line must carry; the run fails without
+    it (an event time never stands in for it)."""
+    check(ms is not None, f"no device time for {what}: the profiler saw no "
+                          f"device events")
+    return ms
+
+
+def _sum(terms: list, times: int = 1):
+    """``times`` the sum of ``terms``, or None if any one was not
+    measured."""
+    return None if None in terms else times * sum(terms)
+
+
+def _ms(ms) -> str:
+    """A device time as printed: "not measured" where it is None."""
+    return "not measured" if ms is None else f"{ms:.5f} ms device"
+
+
+def _ratio(a, b) -> str:
+    return "not measured" if a is None or b is None else f"{a / b:.4f}"
+
+
+def _kernel_breakdown(fn, label: str, calls: int = 10, show: bool = True):
     """Device time per call of each kernel ``fn`` launches (torch.profiler
-    over ``calls`` calls after one warm-up), printed; returns their sum in
-    ms per call, or None where the profiler saw no device events."""
+    over ``calls`` calls, after calls that keep the card busy for at least
+    20 ms), printed unless not ``show``; returns their sum in ms per call,
+    or None where the profiler saw no device events in five tries (a
+    window now and then comes back empty)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 0.02:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    rows = [(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0)), e.key)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows = [(us, key) for us, key in rows if us > 0]
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)), e.key)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        rows = [(us, key) for us, key in rows if us > 0]
+        if rows:
+            break
     if not rows:
         print(f"  {label} per kernel: not measured (no device events)")
         return None
@@ -1000,9 +1202,10 @@ def _kernel_breakdown(fn, label: str, calls: int = 10):
         key = key.replace("(anonymous namespace)::", "")
         return key.split("(")[0].split("<")[0].split()[-1]
 
-    print(f"  {label} per kernel, ms per call: " + "; ".join(
-        f"{short(key)} {us / calls / 1e3:.5f}"
-        for us, key in sorted(rows, reverse=True)))
+    if show:
+        print(f"  {label} per kernel, ms per call: " + "; ".join(
+            f"{short(key)} {us / calls / 1e3:.5f}"
+            for us, key in sorted(rows, reverse=True)))
     return sum(us for us, _ in rows) / calls / 1e3
 
 

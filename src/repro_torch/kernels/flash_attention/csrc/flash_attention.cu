@@ -1,4 +1,5 @@
-// Flash attention forward (prefill) for Hopper, bf16 in and out, f32 math.
+// Flash attention forward (prefill) for Hopper on the tensor cores, bf16 in
+// and out, f32 accumulation and softmax.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/flash_attention.py
 // (flash_attention_kernel, body _flash_kernel): causal and/or sliding-window
@@ -7,21 +8,40 @@
 //
 // What bounds it on the H100: a causal prefill of S tokens does about
 // 4*(S*S/2)*D*H operations on 4*S*H*D*2 bytes (q, k, v, o), S/4 operations
-// per byte, so below ~1200 tokens (the card's ~295 operations per byte)
-// the bytes bound it and above that the operations.  This first version
-// computes both products on the CUDA cores in f32 (no tensor cores), so in
-// practice its own f32 and shared-memory rates bound it, far above either
-// figure.  What the design does about it: each block keeps
-// a 64-row query tile (pre-scaled, f32) in shared memory for the whole KV
-// loop and stages each 64-row K/V tile once, so every K/V element read from
-// device memory feeds 64 query rows; the (64 x 64) score tile never leaves
-// shared memory.  mma.sync / wgmma and TMA are later work.
+// per byte, so below ~1200 tokens (the card's ~295 bf16 operations per
+// byte) the bytes bound it and above that the operations.  What the design
+// does about each:
+// - bytes: every K/V element read from device memory feeds the 64 query
+//   rows of a block, and the score tile, the softmax state and the output
+//   accumulator stay in registers; only q, k, v and o cross device memory.
+//   K/V tiles are double buffered with cp.async (tile j+1 in flight while
+//   tile j is computed), and the causal q-tiles launch heaviest first
+//   (q-tile is the slowest grid dimension, reversed) so the short tiles
+//   near the diagonal fill the tail.
+// - operations: both products run on the tensor cores as
+//   mma.sync.m16n8k16 bf16 -> f32, from ldmatrix fragments out of shared
+//   memory whose 16-byte chunks are XOR-swizzled (no bank conflicts).
+//   S = Q.K^T takes the unscaled bf16 Q (held in registers for the whole KV
+//   loop) and bf16 K: exact products summed in f32.  The scale is applied
+//   to the f32 scores after the product, inside the exponent (exp2(s*c -
+//   m*c), c = scale*log2 e), never to the bf16 Q.  P.V takes P as two bf16
+//   terms, P_hi = bf16(P) and P_lo = bf16(P - P_hi), in two MMAs that share
+//   V's fragments: P is carried to ~2^-17 relative instead of bf16's 2^-9,
+//   at 1.5x the products of a one-term kernel.
+// At the main path's prompts (16..512 tokens, at most 8 KV tiles per
+// block) the time goes to the block of the heaviest causal q-tile, whose
+// tiles of mma.sync run in turn on one SM while lighter blocks finish
+// early.  mma.sync reaches only part of the card's bf16 rate; wgmma fed
+// by TMA from a producer warp is the step after this one.
 //
 // Layout: q (B, Sq, H, D), k and v (B, Sk, KV, D), o (B, Sq, H, D), all
-// contiguous.  Grid (ceil(Sq/64), H, B), 128 threads.  Any Sq and Sk: the
-// ragged edge is masked in the kernel, never padded.  H % KV == 0 with any
-// ratio.  Masks and constants follow _flash_kernel: NEG_INF = -1e30,
-// denominator max(l, 1e-30).
+// contiguous and 16-byte aligned, D in {32, 64, 128}.  Grid (H, B,
+// ceil(Sq/64)), 128 threads: 4 warps of 16 query rows each; KV tiles of 64
+// keys.  Any Sq and Sk: key rows past Sk are zero-filled by cp.async and
+// masked, query rows past Sq are computed from zeros and never stored.
+// H % KV == 0 with any ratio.  Masks and constants follow _flash_kernel:
+// NEG_INF = -1e30, denominator max(l, 1e-30); the mask is applied only on
+// tiles that cross the diagonal, the window edge or Sk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -31,173 +51,302 @@ namespace {
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per KV tile
-constexpr int THREADS = 128;
-constexpr int SP = BK + 1;    // padded score-row stride (floats)
+constexpr int WARPS = 4;      // 16 query rows each
+constexpr int THREADS = 32 * WARPS;
 constexpr float NEG_INF = -1e30f;
 
+// A 64-row bf16 tile of D columns in shared memory.  Row r's 16-byte chunk
+// c sits at chunk c ^ f(r): the eight rows one ldmatrix reads (or eight
+// threads of a cp.async write) fall on eight distinct 16-byte bank groups.
 template <int D>
-struct Smem {
-  static constexpr int KP = D + 2;  // padded K row (bf16): odd 32-bit stride
-  static constexpr size_t q_bytes = sizeof(float) * BQ * D;
-  static constexpr size_t k_bytes = sizeof(__nv_bfloat16) * BK * KP;
-  static constexpr size_t v_bytes = sizeof(__nv_bfloat16) * BK * D;
-  static constexpr size_t p_bytes = sizeof(float) * BQ * SP;
-  static constexpr size_t row_bytes = sizeof(float) * BQ;
-  static constexpr size_t total = q_bytes + k_bytes + v_bytes + p_bytes
-                                  + 3 * row_bytes;
+struct Tile {
+  static constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
+  static constexpr int ELEMS = BQ * D;  // BQ == BK
+  static constexpr size_t SMEM = 5 * sizeof(__nv_bfloat16) * ELEMS;  // Q, 2x(K, V)
+  static __device__ __forceinline__ int off(int r, int c) {
+    if constexpr (CHUNKS >= 8)
+      return r * D + ((c ^ (r & 7)) << 3);
+    else
+      return r * D + ((c ^ ((r / (8 / CHUNKS)) & (CHUNKS - 1))) << 3);
+  }
 };
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !valid (src-size 0)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)) : "memory");
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x, y) -> bf16x2 hi = bf16(x, y) and lo = bf16(x - hi, y - hi)
+__device__ __forceinline__ void split_p(float x, float y, uint32_t& hi,
+                                        uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// rows [row0, row0 + 64) of a (rows, stride) bf16 matrix -> a Tile, as
+// 16-byte cp.async copies; rows at or past nrows are zero-filled
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, int row0,
+                                          int nrows, size_t stride, int t) {
+  constexpr int C = Tile<D>::CHUNKS;
+#pragma unroll
+  for (int n = 0; n < BQ * C / THREADS; ++n) {
+    const int i = t + n * THREADS, r = i / C, c = i % C, row = row0 + r;
+    const bool ok = row < nrows;
+    cp_async16(dst + Tile<D>::off(r, c),
+               src + (ok ? (size_t)row * stride : 0) + c * 8, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o,
                  int sq, int sk, int h, int kv, int causal, int window,
                  float scale) {
-  using S = Smem<D>;
-  constexpr int KP = S::KP;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + S::q_bytes);
-  __nv_bfloat16* v_s =
-      reinterpret_cast<__nv_bfloat16*>(smem + S::q_bytes + S::k_bytes);
-  float* p_s = reinterpret_cast<float*>(smem + S::q_bytes + S::k_bytes
-                                        + S::v_bytes);
-  float* m_s = p_s + BQ * SP;
-  float* l_s = m_s + BQ;
-  float* corr_s = l_s + BQ;
+  using T = Tile<D>;
+  constexpr int KS = D / 16;   // k-steps of Q.K^T
+  constexpr int DT = D / 8;    // 8-column tiles of O
+  constexpr int NT = BK / 8;   // 8-key tiles of S
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* k_s = q_s + T::ELEMS;      // two stages
+  __nv_bfloat16* v_s = k_s + 2 * T::ELEMS;  // two stages
 
-  const int t = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const int hh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;  // mma row group, thread in group
+  const int wr = warp * 16;                   // the warp's rows in the tile
+  const int hh = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest tile first
   const int g = hh * kv / h;  // kv head, as the TPU kernel's index map
+  const float c = scale * 1.4426950408889634f;  // scale * log2(e)
 
-  // query tile, pre-scaled in f32 (rows past Sq are zero and never stored)
-  for (int i = t; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D, row = q0 + r;
-    float val = 0.f;
-    if (row < sq)
-      val = __bfloat162float(q[((size_t)(b * sq + row) * h + hh) * D + d])
-            * scale;
-    q_s[i] = val;
-  }
-  if (t < BQ) {
-    m_s[t] = NEG_INF;
-    l_s[t] = 0.f;
-  }
-
-  // PV mapping: thread owns output column d for NR rows r = rg + RG*i
-  constexpr int RG = THREADS / D;  // row groups
-  constexpr int NR = BQ / RG;
-  const int od = t % D, rg = t / D;
-  float acc[NR];
-#pragma unroll
-  for (int i = 0; i < NR; ++i) acc[i] = 0.f;
-
-  // score mapping: thread owns key column c for 32 rows r = sr + 2*i
-  const int c = t % BK, sr = t / BK;
-
+  // KV tiles this q-tile needs: [kt_begin, kt_end), _flash_kernel's skip
   const int nk = (sk + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    // tile-level skip (uniform over the block), as _flash_kernel's pl.when
-    bool run = true;
-    if (causal) run = k0 <= q0 + BQ - 1;
-    if (window > 0) run = run && (k0 + BK - 1 > q0 - window);
-    if (!run) continue;
-
-    __syncthreads();  // previous tile's readers are done with k_s/v_s/p_s
-    // stage K and V: 16-byte global loads, rows past Sk zero-filled
-    for (int i = t; i < BK * (D / 8); i += THREADS) {
-      const int j = i / (D / 8), d8 = (i % (D / 8)) * 8, row = k0 + j;
-      uint4 kk = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (row < sk) {
-        const size_t off = ((size_t)(b * sk + row) * kv + g) * D + d8;
-        kk = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      uint32_t* kdst = reinterpret_cast<uint32_t*>(k_s + j * KP + d8);
-      kdst[0] = kk.x; kdst[1] = kk.y; kdst[2] = kk.z; kdst[3] = kk.w;
-      *reinterpret_cast<uint4*>(v_s + j * D + d8) = vv;
-    }
-    __syncthreads();
-
-    // scores s[r][c] = q[r] . k[c], masked as _flash_kernel masks
-    {
-      float s[BQ / 2];
-#pragma unroll
-      for (int i = 0; i < BQ / 2; ++i) s[i] = 0.f;
-      const __nv_bfloat162* krow =
-          reinterpret_cast<const __nv_bfloat162*>(k_s + c * KP);
-#pragma unroll 4
-      for (int d2 = 0; d2 < D / 2; ++d2) {
-        const float2 kf = __bfloat1622float2(krow[d2]);
-#pragma unroll
-        for (int i = 0; i < BQ / 2; ++i) {
-          const float2 qf =
-              *reinterpret_cast<const float2*>(q_s + (sr + 2 * i) * D + 2 * d2);
-          s[i] = fmaf(qf.x, kf.x, s[i]);
-          s[i] = fmaf(qf.y, kf.y, s[i]);
-        }
-      }
-      const int kpos = k0 + c;
-#pragma unroll
-      for (int i = 0; i < BQ / 2; ++i) {
-        const int r = sr + 2 * i, qpos = q0 + r;
-        bool ok = kpos < sk;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && kpos > qpos - window;
-        p_s[r * SP + c] = ok ? s[i] : NEG_INF;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: two threads per row, 32 keys each
-    {
-      const int r = t / 2, half = t % 2;
-      float* row = p_s + r * SP + half * (BK / 2);
-      const float m_prev = m_s[r], l_prev = l_s[r];
-      float mx = NEG_INF;
-      for (int j = 0; j < BK / 2; ++j) mx = fmaxf(mx, row[j]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = 0; j < BK / 2; ++j) {
-        const float p = expf(row[j] - m_new);
-        row[j] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      const float corr = expf(m_prev - m_new);
-      __syncwarp();
-      if (half == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_prev * corr + sum;
-        corr_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P @ V
-#pragma unroll
-    for (int i = 0; i < NR; ++i) acc[i] *= corr_s[rg + RG * i];
-    for (int j = 0; j < BK; ++j) {
-      const float vj = __bfloat162float(v_s[j * D + od]);
-#pragma unroll
-      for (int i = 0; i < NR; ++i)
-        acc[i] = fmaf(p_s[(rg + RG * i) * SP + j], vj, acc[i]);
-    }
+  int kt_end = nk, kt_begin = 0;
+  if (causal) kt_end = min(nk, (q0 + BQ - 1) / BK + 1);
+  if (window > 0) {
+    const int x = q0 - window - (BK - 2);  // tile runs iff kt*BK >= x
+    if (x > 0) kt_begin = (x + BK - 1) / BK;
   }
 
-  __syncthreads();
+  const size_t q_stride = (size_t)h * D, kv_stride = (size_t)kv * D;
+  const __nv_bfloat16* qb = q + ((size_t)b * sq * h + hh) * D;
+  const __nv_bfloat16* kb = k + ((size_t)b * sk * kv + g) * D;
+  const __nv_bfloat16* vb = v + ((size_t)b * sk * kv + g) * D;
+
+  load_tile<D>(q_s, qb, q0, sq, q_stride, t);
+  if (kt_begin < kt_end) {
+    load_tile<D>(k_s, kb, kt_begin * BK, sk, kv_stride, t);
+    load_tile<D>(v_s, vb, kt_begin * BK, sk, kv_stride, t);
+  }
+  cp_async_commit();
+
+  uint32_t qf[KS][4];  // Q's A-fragments, loaded once
+  float acc[DT][4];    // O: rows gid (0, 1) and gid + 8 (2, 3)
 #pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    const int r = rg + RG * i, row = q0 + r;
+  for (int i = 0; i < DT; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) {  // next tile into the other stage
+      load_tile<D>(k_s + (st ^ 1) * T::ELEMS, kb, (kt + 1) * BK, sk,
+                   kv_stride, t);
+      load_tile<D>(v_s + (st ^ 1) * T::ELEMS, vb, (kt + 1) * BK, sk,
+                   kv_stride, t);
+    }
+    cp_async_commit();  // (an empty group on the last tile)
+    cp_async_wait<1>();  // this tile (and Q) landed
+    __syncthreads();
+    const __nv_bfloat16* ks = k_s + st * T::ELEMS;
+    const __nv_bfloat16* vs = v_s + st * T::ELEMS;
+
+    if (kt == kt_begin) {
+#pragma unroll
+      for (int i = 0; i < KS; ++i)
+        ldmatrix_x4(qf[i], q_s + T::off(wr + (lane & 15), 2 * i + (lane >> 4)));
+    }
+
+    // S = Q.K^T, 16 x 64 per warp in f32
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        uint32_t kf[4];  // keys 16jp.. : (b0, b1) of tile 2jp, then 2jp + 1
+        ldmatrix_x4(kf, ks + T::off(16 * jp + (lane & 7) + ((lane >> 4) << 3),
+                                    2 * i + ((lane >> 3) & 1)));
+        mma_bf16(s[2 * jp], qf[i], kf[0], kf[1]);
+        mma_bf16(s[2 * jp + 1], qf[i], kf[2], kf[3]);
+      }
+    }
+
+    // mask only where the tile crosses the diagonal, the window edge or Sk
+    const int k0 = kt * BK;
+    const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > q0)
+                      || (window > 0 && k0 <= q0 + BQ - 1 - window);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = q0 + wr + gid + (e >> 1) * 8;
+          const int kpos = k0 + 8 * j + 2 * tig + (e & 1);
+          bool ok = kpos < sk;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          if (!ok) s[j][e] = NEG_INF;
+        }
+    }
+
+    // online softmax in registers: row gid holds s[.][0..1], row gid + 8
+    // s[.][2..3]; a row's 64 scores lie across the 4 threads of a quad.  m
+    // is kept unscaled (scale > 0); the scale is applied in f32 inside the
+    // exponent, exp(scale*s - scale*m) = exp2(s*c - m*c) with c = scale*log2 e.
+    // A row with no unmasked key yet takes m*c = 0, so its masked scores
+    // give p = 0 (not exp2 of the rounding residue of -1e30*c - m*c)
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m_run[r];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[r] = exp2f((m_run[r] - mx) * c);
+      m_run[r] = mx;
+      const float mc = mx == NEG_INF ? 0.f : mx * c;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][2 * r] = exp2f(fmaf(s[j][2 * r], c, -mc));
+        s[j][2 * r + 1] = exp2f(fmaf(s[j][2 * r + 1], c, -mc));
+        sum += s[j][2 * r] + s[j][2 * r + 1];
+      }
+      l_run[r] = l_run[r] * corr[r] + sum;
+    }
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < DT; ++i) {
+        acc[i][0] *= corr[0];
+        acc[i][1] *= corr[0];
+        acc[i][2] *= corr[1];
+        acc[i][3] *= corr[1];
+      }
+    }
+
+    // O += P.V, P = P_hi + P_lo: S's C-fragments of key tiles 2kk and
+    // 2kk + 1 are the A-fragment of keys 16kk..16kk + 15
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_p(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_p(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_p(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_p(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+      uint32_t vf[D / 16][4];  // columns 16dp..: (b0, b1) of tile 2dp, 2dp + 1
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp)
+        ldmatrix_x4_trans(vf[dp], vs + T::off(16 * kk + (lane & 7)
+                                              + ((lane >> 3) & 1) * 8,
+                                              2 * dp + (lane >> 4)));
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        mma_bf16(acc[2 * dp], ph, vf[dp][0], vf[dp][1]);
+        mma_bf16(acc[2 * dp + 1], ph, vf[dp][2], vf[dp][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        mma_bf16(acc[2 * dp], pl, vf[dp][0], vf[dp][1]);
+        mma_bf16(acc[2 * dp + 1], pl, vf[dp][2], vf[dp][3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before refill
+  }
+  cp_async_wait<0>();  // Q's copies too, when no tile ran
+  __syncthreads();
+
+  // epilogue: divide by max(l, 1e-30), round to bf16 once, stage the warp's
+  // 16 rows in its own rows of the Q buffer, store 16-byte row chunks
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    den[r] = fmaxf(l, 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<__nv_bfloat162*>(
+          q_s + T::off(wr + gid + 8 * r, i) + 2 * tig) =
+          __floats2bfloat162_rn(acc[i][2 * r] / den[r],
+                                acc[i][2 * r + 1] / den[r]);
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < DT / 2; ++n) {  // 16 rows x DT chunks over 32 lanes
+    const int i = lane + 32 * n, r = wr + i / DT, c = i % DT, row = q0 + r;
     if (row < sq)
-      o[((size_t)(b * sq + row) * h + hh) * D + od] =
-          __float2bfloat16(acc[i] / fmaxf(l_s[r], 1e-30f));
+      *reinterpret_cast<uint4*>(o + ((size_t)(b * sq + row) * h + hh) * D
+                                + c * 8) =
+          *reinterpret_cast<const uint4*>(q_s + T::off(r, c));
   }
 }
 
@@ -205,12 +354,14 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int sq, int sk, int h, int kv, int causal,
                    int window, float scale, cudaStream_t stream) {
-  const size_t smem = Smem<D>::total;
+  const int nq = (sq + BQ - 1) / BQ;
+  if (b > 65535 || nq > 65535) return cudaErrorInvalidValue;
+  const size_t smem = Tile<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + BQ - 1) / BQ, h, b);
+  dim3 grid(h, b, nq);
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),

@@ -3,7 +3,8 @@
 The CUDA kernels themselves run only on the card (``chip_smoke.py`` holds
 them to these plain versions there); here the plain versions are held to
 the reference's jnp oracles over ``tests/test_kernels.py``'s shape sweeps,
-and to the Pallas kernels in interpret mode.  Tolerances are
+and to the Pallas kernels in interpret mode, and so is an emulation of the
+flash kernel's tensor-core arithmetic.  Tolerances are
 ``tests/test_kernels.py``'s: attention 2e-4 in f32 and 3e-2 in bf16; the
 mLSTM scan rtol 1e-5 with atol 5e-4 (f32) or 1e-1 (bf16) and a mean error
 below 1e-5 (f32) or 1e-3 (bf16).
@@ -100,6 +101,112 @@ class TestFlashPlain:
         k = torch.zeros(1, 4, 2, 32)       # 3 heads over 2 kv heads
         with pytest.raises(ValueError):
             fa_ops.flash_attention(q, k, k)
+
+
+# The tensor-core kernel's tiles and constants (csrc/flash_attention.cu)
+BQ = BK = 64
+NEG_INF = -1e30
+
+
+def _kernel_tile_range(q0, sq, sk, causal, window):
+    """The KV tiles the kernel's block at query row ``q0`` runs, computed as
+    the kernel computes them: [kt_begin, kt_end)."""
+    nk = -(-sk // BK)
+    kt_end = min(nk, (q0 + BQ - 1) // BK + 1) if causal else nk
+    x = q0 - (window or 0) - (BK - 2)
+    kt_begin = -(-x // BK) if window and x > 0 else 0
+    return range(kt_begin, kt_end)
+
+
+def _flash_tensor_core_emulation(q, k, v, *, causal, window, p_terms=2):
+    """Test-only emulation of the CUDA kernel's arithmetic in f32, on CPU
+    tensors: per 64-row query tile, over the 64-key tiles the kernel runs,
+    S = Q.K^T from the unscaled bf16 values (exact products, f32 sums),
+    masked with -1e30, an online softmax in f32 with the scale applied
+    after the product inside the exponent (exp2(s*c - m*c), c = scale *
+    log2 e, m*c = 0 while a row has no unmasked key), and P.V with P split
+    into bf16 terms (``p_terms`` 2: hi + lo, as the kernel; 1: one bf16
+    P).  Returns the output before its rounding to bf16, (B, Sq, H, D)
+    f32."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    c = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32) * np.float32(
+        1.4426950408889634)
+    qf = q.float().transpose(1, 2)                           # (B, H, Sq, D)
+    kf, vf = (torch.nn.functional.pad(
+        t.float().repeat_interleave(h // kv, 2).transpose(1, 2),
+        (0, 0, 0, -sk % BK)) for t in (k, v))              # zero-filled keys
+    out = torch.zeros(b, h, sq, d)
+    for q0 in range(0, sq, BQ):
+        qt = qf[:, :, q0:q0 + BQ]
+        qpos = torch.arange(q0, q0 + qt.shape[2])[:, None]
+        m = torch.full(qt.shape[:3], NEG_INF)
+        l = torch.zeros(qt.shape[:3])
+        acc = torch.zeros(qt.shape)
+        for kt in _kernel_tile_range(q0, sq, sk, causal, window):
+            kpos = torch.arange(kt * BK, (kt + 1) * BK)[None, :]
+            s = qt @ kf[:, :, kt * BK:(kt + 1) * BK].transpose(2, 3)
+            ok = kpos < sk
+            if causal:
+                ok = ok & (kpos <= qpos)
+            if window:
+                ok = ok & (kpos > qpos - window)
+            s = torch.where(ok, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            mc = torch.where(m_new == NEG_INF, 0.0, m_new * c)
+            p = torch.exp2(s * c - mc[..., None])
+            corr = torch.exp2((m - m_new) * c)
+            l = l * corr + p.sum(-1)
+            vt = vf[:, :, kt * BK:(kt + 1) * BK]
+            acc = acc * corr[..., None]
+            rest = p
+            for _ in range(p_terms):
+                term = rest.bfloat16().float()
+                acc = acc + term @ vt
+                rest = rest - term
+            m = m_new
+        out[:, :, q0:q0 + BQ] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2)
+
+
+class TestFlashTensorCoreArithmetic:
+    """The arithmetic of the CUDA kernel, emulated on the CPU, against the
+    reference's Pallas kernel in interpret mode and its jnp oracle (3e-2,
+    bf16), and before its final rounding against the plain version in f32
+    (2e-3)."""
+
+    @pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", FLASH_SHAPES)
+    def test_matches_pallas_kernel_and_oracle(self, b, sq, sk, h, kv, d,
+                                              causal, window):
+        rng = np.random.default_rng(0)
+        (qj, qt), (kj, kt), (vj, vt) = _inputs(
+            rng, "bf16", (b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))
+        kw = dict(causal=causal, window=window)
+        emulated = _flash_tensor_core_emulation(qt, kt, vt, **kw)
+        pallas = flash_attention_kernel(qj, kj, vj, **kw, block_q=BQ,
+                                        block_kv=BK, interpret=True)
+        _close(pallas, emulated.bfloat16(), 3e-2)
+        _close(attention_ref(qj, kj, vj, **kw), emulated.bfloat16(), 3e-2)
+        plain = flash_attention_ref(qt.float(), kt.float(), vt.float(), **kw)
+        err = (emulated - plain).abs().max().item()
+        one_term = (_flash_tensor_core_emulation(qt, kt, vt, **kw, p_terms=1)
+                    - plain).abs().max().item()
+        assert err < 2e-3
+        assert err < one_term / 16     # P carried well past bf16's 2^-9
+
+    @pytest.mark.parametrize("sk", [1, 63, 64, 65, 300])
+    @pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                               (True, 1), (True, 48),
+                                               (False, 100)])
+    def test_tile_range_is_the_reference_skip_rule(self, sk, causal, window):
+        """The kernel's closed-form [kt_begin, kt_end) is exactly the set
+        of tiles _flash_kernel's pl.when runs, at 64 x 64 blocks."""
+        for q0 in range(0, 640, BQ):
+            want = [kt for kt in range(-(-sk // BK))
+                    if (not causal or kt * BK <= q0 + BQ - 1)
+                    and (window is None or kt * BK + BK - 1 > q0 - window)]
+            assert list(_kernel_tile_range(q0, 640, sk, causal,
+                                           window)) == want
 
 
 PAGED_SHAPES = [
@@ -280,3 +387,15 @@ class TestMlstmPlain:
                               initial_state=(torch.zeros(1, 2, 16, 16),
                                              torch.zeros(1, 2, 16),
                                              torch.zeros(1, 2)))
+
+    @pytest.mark.parametrize("seed", [0, 8])
+    def test_probe_reads_kernel_and_plain_against_f64(self, seed):
+        # on the CPU the wrapper runs the plain version: both readings agree
+        # and nothing lies outside the criterion; the f64 gap is f32-sized
+        from repro_torch.kernels.mlstm_scan import probe
+        got = probe.read(seed, "cpu", s=40, dk=16, dv=32, chunk=16)
+        assert got["seed"] == seed and got["y"]["rows_out"] == 0
+        for name in ("y", "C", "n", "m"):
+            r = got[name]
+            assert r["kernel_vs_f64"] == r["plain_vs_f64"] < 5e-4
+            assert r["out_of_criterion"] == 0
