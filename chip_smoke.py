@@ -13,10 +13,11 @@ kernels (launch counters: flash + paged for olmo-1b, the chunked mLSTM scan
 for xlstm-1.3b, dequant once per quantized block restored) and that its
 crossing tapes obey the bridge law, profiles a decode step of each model,
 and times each kernel, its plain version and the PyTorch call computing the
-same function, where there is one (device time by the profiler for the
-attention kernels and dequant; the flash kernel at each of the main path's
-prompt lengths and at 4096, beside a build of it with P in one bf16
-term).  It prints
+same function, where there is one (device time by the profiler; the flash
+kernel at each of the main path's prompt lengths and at 4096; the paged
+kernel at the main path's decode lengths, with every slot full, and at a
+profiled decode step's lengths back to back, after idle and after a
+GEMM).  It prints
 the card's name and power limit, one ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the repository's ``src`` beside it, it exits non-zero and prints
@@ -41,6 +42,9 @@ BF16_TOL = 3e-2
 #: kernel against the plain version (bf16 rounding of the output alone is
 #: ~2^-9 relative; a dropped or misweighted KV tile moves it far more)
 FLASH_REL_L2 = 1e-2
+#: each paged case too (bf16 rounding of the output alone is ~2^-9
+#: relative; a page or split dropped or misweighted moves it far more)
+PAGED_REL_L2 = 1e-2
 #: the mLSTM scan's tolerances, tests/test_kernels.py's: rtol 1e-5 with atol
 #: 5e-4 (f32) or 1e-1 (bf16), mean error below 1e-5 (f32) or 1e-3 (bf16)
 MLSTM_TOL = {torch.float32: (5e-4, 1e-5), torch.bfloat16: (1e-1, 1e-3)}
@@ -68,6 +72,9 @@ RESTORE = dict(max_batch=4, max_len=1024, prompt_len=512, block_tokens=16,
 #: f32 rounding of the scale, the product and the difference
 QUANT_BOUND = {"int8": 0.5 / 127, "fp8": 16 / 448}
 F32_SLACK = 2.0 ** -22
+#: what phase_profile saw of the paged kernel, by model: the lengths of a
+#: profiled decode step and each launch's device time (us)
+PROFILED = {}
 
 
 def fail(msg: str) -> None:
@@ -208,25 +215,60 @@ def _paged_inputs(gen, b, h, kv, d, page, pages_max, lengths, identity):
 
 
 def phase_paged(gen) -> float:
+    """Every case within BF16_TOL (max abs) and PAGED_REL_L2 (rel L2) of
+    the plain version; returns the worst max abs error.  Each case prints
+    the kernel's split size (``ops.pages_per_split``)."""
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     lens8 = [1, 7, 16, 17, 32, 333, 1023, 1024]   # 1, < page, boundaries, max
-    cases = [dict(b=8, h=16, kv=16, d=128, page=16, pages_max=64,
-                  lengths=lens8, identity=False),
-             dict(b=8, h=16, kv=16, d=128, page=16, pages_max=64,
-                  lengths=lens8, identity=True),
+    olmo = dict(h=16, kv=16, d=128, page=16, pages_max=64)
+    cases = [dict(b=8, **olmo, lengths=lens8, identity=False),
+             dict(b=8, **olmo, lengths=lens8, identity=True),
              dict(b=4, h=40, kv=8, d=128, page=16, pages_max=64,
                   lengths=[1, 15, 500, 1024], identity=False)]
+
+    def at_splits(b, kv, page, pages_max, extra=()):
+        """Lengths one token short of, at and past a split (and two
+        splits), plus ``extra``."""
+        t = ops.pages_per_split(b, kv, pages_max, page) * page
+        return [t - 1, t, t + 1, 2 * t + 1, *extra][:b]
+
+    # split boundaries (olmo-1b and GQA H40/KV8), one row at the longest
+    # length a slot holds, lengths past pages_max * page (clipped), two
+    # head groups (12 query heads a KV head) and the other head dims.  They
+    # draw from a generator of their own, so every later phase's inputs
+    # stay those of earlier runs (the mLSTM check is draw-sensitive)
+    added = [dict(b=4, **olmo, lengths=at_splits(4, 16, 16, 64),
+                  identity=False),
+             dict(b=1, **olmo, lengths=[1024], identity=True),
+             dict(b=2, **olmo, lengths=[1025, 5000], identity=False),
+             dict(b=5, h=40, kv=8, d=128, page=16, pages_max=64,
+                  lengths=at_splits(5, 8, 16, 64, [1024]), identity=False),
+             dict(b=2, h=24, kv=2, d=128, page=16, pages_max=32,
+                  lengths=[77, 512], identity=False),
+             dict(b=3, h=8, kv=4, d=64, page=8, pages_max=40,
+                  lengths=[1, 64, 320], identity=False),
+             dict(b=2, h=4, kv=1, d=32, page=16, pages_max=16,
+                  lengths=[17, 256], identity=False),
+             dict(b=2, h=8, kv=4, d=256, page=16, pages_max=16,
+                  lengths=[100, 256], identity=False)]
+    own = torch.Generator(device=DEVICE).manual_seed(2)
     worst = 0.0
-    for c in cases:
-        args = _paged_inputs(gen, **c)
-        out = ops.paged_attention(*args)
+    for c, g in [(c, gen) for c in cases] + [(c, own) for c in added]:
+        args = _paged_inputs(g, **c)
+        out = ops.paged_attention(*args).float()
         torch.cuda.synchronize()
-        err = (out.float() - paged_attention_ref(*args).float()
-               ).abs().max().item()
-        print(f"paged {c}: max_abs_err {err:.3g}")
+        ref = paged_attention_ref(*args).float()
+        err = (out - ref).abs().max().item()
+        rel = _rel(out, ref)
+        pps = ops.pages_per_split(c["b"], c["kv"], c["pages_max"], c["page"])
+        print(f"paged {c}: split {pps} pages ({pps * c['page']} tokens); "
+              f"max_abs_err {err:.3g} rel_l2 {rel:.3g}")
         check(math.isfinite(err) and err <= BF16_TOL,
               f"paged kernel disagrees with its plain version at {c}: {err}")
+        check(math.isfinite(rel) and rel <= PAGED_REL_L2,
+              f"paged kernel disagrees with its plain version at {c}: rel "
+              f"L2 {rel}")
         worst = max(worst, err)
     return worst
 
@@ -607,6 +649,7 @@ def phase_profile(model) -> None:
             1, model.cfg.vocab_size, (n,), generator=gen).tolist(),
             sampling=SamplingParams(max_new_tokens=12)))
     steps = 4
+    lengths = []                      # the paged kernel's, per profiled step
     try:
         engine.step()                 # admissions, prefills, first decode
         engine.step()
@@ -620,6 +663,8 @@ def phase_profile(model) -> None:
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
+                lengths.append([engine.active[s].index + 1
+                                for s in sorted(engine.active)])
                 engine.step()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
@@ -646,6 +691,16 @@ def phase_profile(model) -> None:
     for e in sorted(events, key=dev_us, reverse=True)[:8]:
         print(f"  {dev_us(e) / steps:9.1f} us/step  {e.count // steps:4d} "
               f"calls/step  {e.key[:90]}")
+    paged = sorted(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and "paged" in e.name)
+    if paged:
+        PROFILED[model.cfg.name] = dict(lengths=lengths[steps // 2],
+                                        paged_us=paged)
+        print(f"  paged kernel per launch in the profiled steps: "
+              f"{len(paged)} launches, min {paged[0]:.1f} median "
+              f"{paged[len(paged) // 2]:.1f} mean "
+              f"{sum(paged) / len(paged):.1f} max {paged[-1]:.1f} us; "
+              f"lengths per step {lengths}")
 
 
 def _restore_run(model, kv_quant: str, blocks: list, shared: list,
@@ -950,70 +1005,124 @@ def _time_paged(gen, launches: dict, errs: dict) -> dict:
     KV, D) that the pages view, with a length mask (checked against the
     kernel once).  ms, plain_ms and library_ms are device time per call
     (the profiler's; library_ms None where it saw no device events), events
-    beside them."""
+    beside them.  The same again with every slot full (1024 tokens), and
+    the kernel at the lengths of phase_profile's olmo-1b decode step three
+    ways: back to back, each call after 2 ms of idle card, and each call
+    after a 64 MiB weight-streaming GEMM (as a decode step runs it between
+    two layers' GEMMs)."""
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     b, h, kv, d, page, layers = len(MAIN["prompt_lens"]), 16, 16, 128, 16, 16
     pages_max = MAIN["max_len"] // page
     cap = pages_max * page
-    lengths = [n + 16 for n in MAIN["prompt_lens"]]
     qd = _randn(gen, b, h, d)
     shape = (layers, b * pages_max, page, kv, d)
     kc = torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
     vc = torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
     bt = (torch.arange(b, device=DEVICE)[:, None] * pages_max
           + torch.arange(pages_max, device=DEVICE)[None, :]).to(torch.int32)
-    ln = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
-    mask = (torch.arange(cap, device=DEVICE)[None, :] < ln[:, None]
-            )[:, None, None]                       # (B, 1, 1, cap)
+    pps = pa.pages_per_split(b, kv, pages_max, page)
     turn = [0]
 
-    def cycled(fn):
-        def call():
-            i = turn[0] = (turn[0] + 1) % layers
-            return fn(qd, kc[i], vc[i], bt, ln)
-        return call
+    def at(lengths) -> dict:
+        """Kernel, plain version and SDPA at ``lengths``, layers cycled,
+        and SDPA's max abs difference from the kernel."""
+        ln = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+        mask = (torch.arange(cap, device=DEVICE)[None, :] < ln[:, None]
+                )[:, None, None]                   # (B, 1, 1, cap)
 
-    def sdpa(q, kp, vp, _bt, _ln):
-        ck, cv = (t.view(b, cap, kv, d).transpose(1, 2) for t in (kp, vp))
-        return F.scaled_dot_product_attention(
-            q[:, :, None], ck, cv, attn_mask=mask, enable_gqa=True)[:, :, 0]
+        def sdpa(q, kp, vp, _bt, _ln):
+            ck, cv = (t.view(b, cap, kv, d).transpose(1, 2) for t in (kp, vp))
+            return F.scaled_dot_product_attention(
+                q[:, :, None], ck, cv, attn_mask=mask, enable_gqa=True
+            )[:, :, 0]
 
-    args = (qd, kc[0], vc[0], bt, ln)
-    lib_err = (sdpa(*args).float() - pa.paged_attention(*args).float()
-               ).abs().max().item()
-    check(math.isfinite(lib_err) and lib_err <= BF16_TOL,
-          f"SDPA over the slot cache is not the paged kernel's function: "
-          f"{lib_err}")
-    ev = time_ms(cycled(pa.paged_attention), iters=64)
-    plain_ev = time_ms(cycled(paged_attention_ref), iters=16)
-    lib_ev = time_ms(cycled(sdpa), iters=64)
-    got = _in_turns(dict(kernel=cycled(pa.paged_attention),
-                         sdpa=cycled(sdpa)), "paged")
-    dev = _measured(got["kernel"], "the paged kernel")
-    lib_dev = got["sdpa"]
-    plain_dev = _measured(_kernel_breakdown(cycled(paged_attention_ref),
-                                            "paged plain"),
-                          "paged's plain version")
-    tokens = sum(lengths)
-    nbytes = (2 * b * h * d * 2 + tokens * kv * d * 2 * 2
-              + bt.numel() * 4 + ln.numel() * 4)
-    bms, by = bound(4.0 * h * d * tokens, nbytes)
-    print(f"timing paged (B={b} H={h} KV={kv} D={d} page={page} "
-          f"lengths={lengths}): kernel {dev} ms device ({ev:.4f} events), "
-          f"plain {plain_dev} ms device ({plain_ev:.4f} events), sdpa over "
-          f"the slot cache with a length mask {_ms(lib_dev)} "
-          f"({lib_ev:.4f} events; max_abs_err vs the kernel {lib_err:.3g}), "
-          f"bound {bms:.5f} ms ({by})")
+        def cycled(fn):
+            def call():
+                i = turn[0] = (turn[0] + 1) % layers
+                return fn(qd, kc[i], vc[i], bt, ln)
+            return call
+
+        args = (qd, kc[0], vc[0], bt, ln)
+        lib_err = (sdpa(*args).float() - pa.paged_attention(*args).float()
+                   ).abs().max().item()
+        check(math.isfinite(lib_err) and lib_err <= BF16_TOL,
+              f"SDPA over the slot cache is not the paged kernel's function "
+              f"at {lengths}: {lib_err}")
+        return dict(kernel=cycled(pa.paged_attention),
+                    plain=cycled(paged_attention_ref), sdpa=cycled(sdpa),
+                    lib_err=lib_err)
+
+    def timing(lengths) -> dict:
+        fns = at(lengths)
+        kernel, plain, sdpa = fns["kernel"], fns["plain"], fns["sdpa"]
+        ev = time_ms(kernel, iters=64)
+        plain_ev = time_ms(plain, iters=16)
+        lib_ev = time_ms(sdpa, iters=64)
+        got = _in_turns(dict(kernel=kernel, sdpa=sdpa), f"paged {lengths}")
+        dev = _measured(got["kernel"], f"the paged kernel at {lengths}")
+        lib_dev = got["sdpa"]
+        plain_dev = _measured(_kernel_breakdown(plain, "paged plain",
+                                                show=False),
+                              f"paged's plain version at {lengths}")
+        tokens = sum(min(n, cap) for n in lengths)
+        nbytes = (2 * b * h * d * 2 + tokens * kv * d * 2 * 2
+                  + sum(-(-min(n, cap) // page) for n in lengths) * 4 + b * 4)
+        bms, by = bound(4.0 * h * d * tokens, nbytes)
+        print(f"timing paged (B={b} H={h} KV={kv} D={d} page={page}, split "
+              f"{pps} pages, lengths={lengths}): kernel {dev:.5f} ms device "
+              f"({ev:.4f} events), plain {plain_dev:.5f} ms device "
+              f"({plain_ev:.4f} events), sdpa over the slot cache with a "
+              f"length mask {_ms(lib_dev)} ({lib_ev:.4f} events; "
+              f"max_abs_err vs the kernel {fns['lib_err']:.3g}), bound "
+              f"{bms:.5f} ms ({by}); kernel / sdpa {_ratio(dev, lib_dev)}, "
+              f"bound / kernel {bms / dev:.4f}")
+        return dict(ms=dev, plain_ms=plain_dev, library_ms=lib_dev,
+                    bound_ms=bms, bound_by=by, events_ms=ev,
+                    plain_events_ms=plain_ev, library_events_ms=lib_ev)
+
+    main = timing([n + 16 for n in MAIN["prompt_lens"]])
+    full = timing([cap] * b)
+    seen = PROFILED.get("olmo-1b")
+    profiled = None
+    if seen:
+        kernel = at(seen["lengths"])["kernel"]
+        weights = torch.randn((MAIN["max_len"] * 2, 16384), generator=gen,
+                              device=DEVICE).to(torch.bfloat16)
+        x = _randn(gen, b, MAIN["max_len"] * 2)
+
+        def after_idle():
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+            return kernel()
+
+        def after_gemm():
+            torch.mm(x, weights)
+            return kernel()
+
+        profiled = {name: _kernel_breakdown(fn, f"paged {name}", show=False,
+                                            only="paged")
+                    for name, fn in (("back_to_back", kernel),
+                                     ("after_idle", after_idle),
+                                     ("after_gemm", after_gemm))}
+        us = seen["paged_us"]
+        profiled["in_profile"] = sum(us) / len(us) / 1e3
+        print(f"timing paged at the profiled olmo-1b step's lengths "
+              f"{seen['lengths']}, ms per call: in the decode-step profile "
+              f"{profiled['in_profile']:.5f}; here back to back "
+              f"{_ms(profiled['back_to_back'])}, each after 2 ms idle "
+              f"{_ms(profiled['after_idle'])}, each after a 64 MiB GEMM "
+              f"{_ms(profiled['after_gemm'])}")
+        del weights, x
     return dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention/paged_attention.py:76",
         launches=launches["paged_attention"],
-        max_abs_err=errs["paged_attention"], ms=dev, plain_ms=plain_dev,
-        bound_ms=bms, bound_by=by, library_ms=lib_dev, events_ms=ev,
-        plain_events_ms=plain_ev,
-        library_events_ms=lib_ev)
+        max_abs_err=errs["paged_attention"], **main, pages_per_split=pps,
+        all_1024={k: full[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")},
+        profiled_lengths_ms=profiled)
 
 
 def _clocks() -> str:
@@ -1169,12 +1278,21 @@ def _ratio(a, b) -> str:
     return "not measured" if a is None or b is None else f"{a / b:.4f}"
 
 
-def _kernel_breakdown(fn, label: str, calls: int = 10, show: bool = True):
+def _kernel_breakdown(fn, label: str, calls: int = 10, show: bool = True,
+                      only: str = ""):
     """Device time per call of each kernel ``fn`` launches (torch.profiler
     over ``calls`` calls, after calls that keep the card busy for at least
-    20 ms), printed unless not ``show``; returns their sum in ms per call,
-    or None where the profiler saw no device events in five tries (a
-    window now and then comes back empty)."""
+    20 ms), printed unless not ``show``; returns their sum in ms per call
+    (of the kernels whose name holds ``only``), or None where the profiler
+    saw no such device events in five windows.
+
+    A window now and then comes back empty, or holding fewer launches of a
+    kernel than were made (``count`` below calls x launches per call), so
+    a total over the window divided by ``calls`` would read low.  A window
+    whose every kernel count is a multiple of ``calls`` is taken as it is;
+    failing one in five, the window holding the most launches is read as
+    each kernel's mean time per launch seen, times ceil(count / calls)
+    launches per call, and the label says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
@@ -1182,31 +1300,39 @@ def _kernel_breakdown(fn, label: str, calls: int = 10, show: bool = True):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    best, whole = [], False
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         rows = [(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0)), e.key)
+                         getattr(e, "self_cuda_time_total", 0.0)), e.key,
+                 e.count)
                 for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        rows = [(us, key) for us, key in rows if us > 0]
-        if rows:
+                if e.device_type == DeviceType.CUDA and only in e.key]
+        rows = [(us, key, n) for us, key, n in rows if us > 0 and n > 0]
+        if rows and all(n % calls == 0 for _, _, n in rows):
+            best, whole = rows, True
             break
-    if not rows:
+        if sum(n for _, _, n in rows) > sum(n for _, _, n in best):
+            best = rows
+    if not best:
         print(f"  {label} per kernel: not measured (no device events)")
         return None
+    per_call = sorted(((us / n * -(-n // calls), key) for us, key, n in best),
+                      reverse=True)
 
     def short(key):   # "void (anonymous namespace)::name<T>(...)" -> name
         key = key.replace("(anonymous namespace)::", "")
         return key.split("(")[0].split("<")[0].split()[-1]
 
     if show:
-        print(f"  {label} per kernel, ms per call: " + "; ".join(
-            f"{short(key)} {us / calls / 1e3:.5f}"
-            for us, key in sorted(rows, reverse=True)))
-    return sum(us for us, _ in rows) / calls / 1e3
+        seen = "" if whole else (" (the profiler lost launches in every "
+                                 "window; mean per launch seen)")
+        print(f"  {label} per kernel, ms per call{seen}: " + "; ".join(
+            f"{short(key)} {us / 1e3:.5f}" for us, key in per_call))
+    return sum(us for us, _ in per_call) / 1e3
 
 
 def main() -> None:

@@ -10,6 +10,7 @@ runs the source's three kernels, stats, scores and out, in order).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -52,6 +53,42 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return mlstm_chunked_ref(q, k, v, log_i, log_f, chunk=chunk,
                                  initial_state=initial_state)
+    y, state, _ = _launch(q, k, v, log_i, log_f, chunk, initial_state)
+    return y, state
+
+
+def mlstm_scan_with_workspace(q, k, v, log_i, log_f, *, chunk: int,
+                              initial_state: Optional[tuple] = None):
+    """``mlstm_scan`` on the card, also returning the kernel's workspace as
+    ``workspace_views`` names it (what ``probe`` reads)."""
+    _check(q, k, v, log_i, log_f, chunk, initial_state)
+    y, state, ws = _launch(q, k, v, log_i, log_f, chunk, initial_state)
+    b, s, h, _ = q.shape
+    return y, state, workspace_views(ws, b, s, h, chunk)
+
+
+def workspace_views(ws: torch.Tensor, b: int, s: int, h: int,
+                    chunk: int) -> dict:
+    """The kernel's f32 workspace cut as ``carve`` in csrc/mlstm_scan.cu
+    cuts it, per (b*H + h): F, qn, kvw, interw, denom over the padded
+    sequence (B*H, nc*chunk); mprev, wcarry per chunk (B*H, nc); W per
+    chunk (B*H, nc, chunk, chunk), the weighted scores (q_t . k_s)
+    e^{D[t,s]-m_t} (zero above the diagonal)."""
+    nc = -(-s // chunk)
+    bh, sp = b * h, nc * chunk
+    shapes = [("F", (bh, sp)), ("qn", (bh, sp)), ("kvw", (bh, sp)),
+              ("interw", (bh, sp)), ("denom", (bh, sp)), ("mprev", (bh, nc)),
+              ("wcarry", (bh, nc)), ("W", (bh, nc, chunk, chunk))]
+    views, off = {}, 0
+    for name, shape in shapes:
+        n = math.prod(shape)
+        views[name] = ws[off:off + n].view(shape)
+        off += n
+    return views
+
+
+def _launch(q, k, v, log_i, log_f, chunk, initial_state):
+    """Launch the kernel; returns (y, (C, n, m), workspace)."""
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_scan: no kernel for {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -92,7 +129,7 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"mlstm_scan kernel launch failed: CUDA error "
                            f"{rc}")
     mlstm_scan.launches += 1
-    return y, (C, n, m)
+    return y, (C, n, m), ws
 
 
 mlstm_scan.launches = 0

@@ -14,6 +14,31 @@ per-element criterion ``chip_smoke.py`` holds the kernel to (atol 5e-4 +
 the kernel is as accurate as its plain version on draws other than the
 smoke's.  Runs on the card unless ``--device cpu`` (where the wrapper runs
 the plain version, so kernel and plain agree by construction).
+
+Each line also carries ``worst_row``: the row of y (b, t, h) where the
+kernel is furthest from f64, read term by term at its worst column, with
+the kernel's, the plain version's and the f64 value of each quantity:
+the stabiliser m_t and e^{-m_t}; the denominator's intra-chunk sum
+sum_s W[t,s] (W[t,s] = (q_t . k_s) e^{D[t,s]-m_t}) and inter-chunk term
+e^{m+F_t-m_t} q_t . n, their sum q.n and the denominator max(|q.n|,
+e^{-m_t}); the numerator's two sums (sum_s W[t,s] v_s and e^{m+F_t-m_t}
+q_t . C) and y.  The kernel's values come from its workspace (m_t
+recomputed from its F in f32, as it computes it; its W summed in f64; C at
+the chunk's start from the kernel run on the sequence up to that chunk).
+Beside them the condition numbers of the denominator and numerator over
+the f64 values, kappa = sum |terms| / |sum|: ``kappa_den_s`` over the
+terms W[t,s] and the inter-chunk term, and ``kappa_den`` and
+``kappa_num`` over the products the sums are made of (q_ti k_si w_s,
+times v_s where the numerator's, and the inter-chunk products), which is
+what f32 rounds.  For each implementation c = |y - y_f64| / (eps32 kappa
+|y_f64|), kappa = kappa_den + kappa_num and eps32 = 2^-23: an
+implementation is as accurate as some order of f32 summation allows when
+its c is small (the classical bound lets c grow with the number of terms
+summed in turn, 512 products and up to 256 steps here).  ``W_term_c``:
+the largest single term's error against the row's products, max_s |W_s -
+W_f64,s| / (eps32 sum_s w_s |q_t|.|k_s|); a term dropped or misweighted
+(a tile edge, a mask) puts it near its share of the row over eps32 (8e4
+for a term of 1%), rounding keeps it near 1 or below.
 """
 
 from __future__ import annotations
@@ -49,9 +74,15 @@ def read(seed: int, device=None, **shape) -> dict:
     dev = resolve_device(device)
     chunk = shape.pop("chunk")
     args = draw(seed, dev, **shape)
-    y, st = ops.mlstm_scan(*args, chunk=chunk)
-    py, pst = mlstm_chunked_ref(*args, chunk=chunk)
-    ry, rst = mlstm_chunked_ref(*args, chunk=chunk, dtype=torch.float64)
+    ws = None
+    if dev.type == "cuda":
+        y, st, ws = ops.mlstm_scan_with_workspace(*args, chunk=chunk)
+    else:
+        y, st = ops.mlstm_scan(*args, chunk=chunk)
+    pterms, rterms = [], []
+    py, pst = mlstm_chunked_ref(*args, chunk=chunk, terms=pterms)
+    ry, rst = mlstm_chunked_ref(*args, chunk=chunk, dtype=torch.float64,
+                                terms=rterms)
     out = {"seed": seed}
     for name, got, plain, exact in zip(("y", "C", "n", "m"), (y, *st),
                                        (py, *pst), (ry, *rst)):
@@ -63,7 +94,101 @@ def read(seed: int, device=None, **shape) -> dict:
                          out_of_criterion=int(bad.sum()))
         if name == "y":
             out[name]["rows_out"] = int(bad.any(dim=-1).sum())
+    out["worst_row"] = worst_row(args, chunk, y, ws, (py, pterms),
+                                 (ry, rterms))
     return out
+
+
+EPS32 = 2.0 ** -23
+
+
+def _plain_row(y, terms, at) -> dict:
+    """The row's quantities from ``mlstm_chunked_ref``'s terms."""
+    b, t, h, col, c, tl = at
+    T = terms[c]
+    qn_intra, qn_inter = T["qn_intra"][b, tl, h], T["qn_inter"][b, tl, h]
+    m_t = T["m_t"][b, tl, h]
+    return dict(m_t=m_t, exp_neg_m=torch.exp(-m_t), qn_intra=qn_intra,
+                qn_inter=qn_inter, qdotn=qn_intra + qn_inter,
+                denom=T["denom"][b, tl, h],
+                num_intra=T["num_intra"][b, tl, h, col],
+                num_inter=T["num_inter"][b, tl, h, col], y=y[b, t, h, col])
+
+
+def _kernel_row(args, chunk, y, ws, at) -> dict:
+    """The row's quantities from the kernel's workspace: m_t from its F in
+    f32 as the scores kernel computes it, its W summed in f64, and C at the
+    chunk's start from the kernel run on the sequence before the chunk."""
+    q, k, v, li, _ = args
+    b, t, h, col, c, tl = at
+    H = q.shape[2]
+    bh, t0 = b * H + h, c * chunk
+    F = ws["F"][bh, t0:t0 + tl + 1]
+    m_t = torch.maximum(((F[-1] - F) + li[b, t0:t0 + tl + 1, h]).max(),
+                        ws["mprev"][bh, c] + F[-1])
+    W = ws["W"][bh, c, tl, :tl + 1].double()
+    iw = ws["interw"][bh, t0 + tl]
+    qn_intra, qn_inter = W.sum(), (iw * ws["qn"][bh, t0 + tl]).double()
+    if c == 0:
+        inter = torch.zeros((), dtype=torch.float64, device=q.device)
+    else:
+        _, (C, _, _) = ops.mlstm_scan(
+            *(a[:, :t0].contiguous() for a in args), chunk=chunk)
+        inter = iw.double() * (q[b, t, h].double() @ C[b, h, :, col].double())
+    return dict(m_t=m_t, exp_neg_m=torch.exp(-m_t), qn_intra=qn_intra,
+                qn_inter=qn_inter, qdotn=qn_intra + qn_inter,
+                denom=ws["denom"][bh, t0 + tl],
+                num_intra=W @ v[b, t0:t0 + tl + 1, h, col].double(),
+                num_inter=inter, y=y[b, t, h, col])
+
+
+def worst_row(args, chunk, y, ws, plain, exact) -> dict:
+    """The readout of the row of y furthest from f64 (module docstring).
+    ``ws``: the kernel's workspace views, or None where the wrapper ran the
+    plain version (its terms then stand in for the kernel's); ``plain``
+    and ``exact``: (y, terms) of the plain version in f32 and f64."""
+    (py, pterms), (ry, rterms) = plain, exact
+    err = (y.double() - ry).abs()
+    b, t, h = (int(i) for i in torch.unravel_index(
+        err.amax(-1).argmax(), err.shape[:3]))
+    col = int(err[b, t, h].argmax())
+    c, tl = t // chunk, t % chunk
+    at = (b, t, h, col, c, tl)
+    got = (_plain_row(y, pterms, at) if ws is None
+           else _kernel_row(args, chunk, y, ws, at))
+    rows = dict(kernel=got, plain=_plain_row(py, pterms, at),
+                f64=_plain_row(ry, rterms, at))
+    T = rterms[c]
+    W = T["W"][b, tl, h, :tl + 1]
+    elem = T["w"][b, tl, h, :tl + 1] * T["qk_abs"][b, tl, h, :tl + 1]
+    v = args[2][b, c * chunk:c * chunk + tl + 1, h, col].double()
+    f = rows["f64"]
+    num = (f["num_intra"] + f["num_inter"]).abs()
+    kappa_den_s = float((W.abs().sum() + f["qn_inter"].abs())
+                        / f["qdotn"].abs())
+    kappa_den = float((elem.sum() + T["qn_inter_abs"][b, tl, h])
+                      / f["qdotn"].abs())
+    kappa_num = float(((elem * v.abs()).sum()
+                       + T["num_inter_abs"][b, tl, h, col]) / num)
+    scale = EPS32 * (kappa_den + kappa_num) * float(f["y"].abs())
+    Wk = (pterms[c]["W"][b, tl, h, :tl + 1] if ws is None else
+          ws["W"][b * args[0].shape[2] + h, c, tl, :tl + 1])
+    Wp = pterms[c]["W"][b, tl, h, :tl + 1]
+
+    def term_c(w_impl):
+        return float((w_impl.double() - W).abs().max()
+                     / (EPS32 * elem.sum()))
+
+    quantities = {name: {impl: float(rows[impl][name]) for impl in rows}
+                  for name in f}
+    return dict(b=b, t=t, h=h, col=col, chunk=c, kappa_den_s=kappa_den_s,
+                kappa_den=kappa_den, kappa_num=kappa_num,
+                c_kernel=float((y[b, t, h, col].double() - f["y"]).abs())
+                / scale,
+                c_plain=float((py[b, t, h, col].double() - f["y"]).abs())
+                / scale,
+                W_term_c_kernel=term_c(Wk), W_term_c_plain=term_c(Wp),
+                **quantities)
 
 
 def main(argv=None) -> None:

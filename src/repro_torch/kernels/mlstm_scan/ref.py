@@ -32,9 +32,17 @@ def empty_state(b: int, h: int, dk: int, dv: int, device,
             torch.full((b, h), NEG_INF, dtype=dtype, device=device))
 
 
-def _chunk_step(qb, kb, vb, li, lf, C, n, m):
+def _chunk_step(qb, kb, vb, li, lf, C, n, m, terms=None):
     """One chunk: (b, chunk, h, *) inputs and the carried (C, n, m) in;
-    the chunk's output and the state at its end out."""
+    the chunk's output and the state at its end out.  With ``terms`` (a
+    dict) it also keeps the output's parts: the stabiliser ``m_t``, the
+    denominator's intra- and inter-chunk sums ``qn_intra`` and
+    ``qn_inter``, the decay weights ``w[t, s] = e^{D[t,s]-m_t}`` and
+    weighted scores ``W[t, s] = (q_t . k_s) w[t, s]`` (b, t, h, s), the
+    numerator's two sums ``num_intra`` and ``num_inter``, the denominator
+    ``denom``, and the magnitudes of the products the sums are made of:
+    ``qk_abs`` = |q_t| . |k_s|, ``qn_inter_abs`` and ``num_inter_abs``
+    (the inter-chunk sums over |q_t e^{m+F_t-m_t}| and |n|, |C|)."""
     chunk = qb.shape[1]
     Fc = torch.cumsum(lf, dim=1)                           # (b,chunk,h)
     # intra-chunk log decay D[t, s] = F_t - F_s + li_s   (s <= t)
@@ -60,6 +68,18 @@ def _chunk_step(qb, kb, vb, li, lf, C, n, m):
              + torch.einsum("bthk,bhk->bth", q_inter, n))
     denom = torch.maximum(torch.abs(qdotn), torch.exp(-m_t))
     out = num / denom[..., None]
+    if terms is not None:
+        aq, ai = qb.abs(), q_inter.abs()
+        terms.update(m_t=m_t, w=intra_w.permute(0, 1, 3, 2),
+                     W=scores * intra_w.permute(0, 1, 3, 2),
+                     qk_abs=torch.einsum("bthk,bshk->bths", aq, kb.abs()),
+                     qn_intra=torch.einsum("bthk,bthk->bth", qb, norm_intra),
+                     qn_inter=torch.einsum("bthk,bhk->bth", q_inter, n),
+                     qn_inter_abs=torch.einsum("bthk,bhk->bth", ai, n.abs()),
+                     num_intra=intra, num_inter=inter,
+                     num_inter_abs=torch.einsum("bthk,bhkv->bthv", ai,
+                                                C.abs()),
+                     denom=denom)
 
     # state update to the end of the chunk
     F_tot = Fc[:, -1]                                      # (b,h)
@@ -75,11 +95,12 @@ def _chunk_step(qb, kb, vb, li, lf, C, n, m):
 
 def mlstm_chunked_ref(q, k, v, log_i, log_f, *, chunk: int,
                       initial_state: Optional[tuple] = None,
-                      dtype=torch.float32):
+                      dtype=torch.float32, terms: Optional[list] = None):
     """q, k: (B,S,H,dk) pre-scaled; v: (B,S,H,dv); log_i/log_f: (B,S,H).
 
     Returns (y (B,S,H,dv) in q's dtype, (C (B,H,dk,dv), n (B,H,dk),
-    m (B,H)) in ``dtype``, the type everything is computed in)."""
+    m (B,H)) in ``dtype``, the type everything is computed in).  With
+    ``terms`` (a list) each chunk appends its ``_chunk_step`` terms."""
     b, s, h, dk = q.shape
     dv = v.shape[-1]
     nchunk = -(-s // chunk)
@@ -96,8 +117,11 @@ def mlstm_chunked_ref(q, k, v, log_i, log_f, *, chunk: int,
     outs = []
     for c in range(nchunk):
         sl = slice(c * chunk, (c + 1) * chunk)
+        parts = None if terms is None else {}
         out, (C, n, m) = _chunk_step(qf[:, sl], kf[:, sl], vf[:, sl],
-                                     li[:, sl], lf[:, sl], C, n, m)
+                                     li[:, sl], lf[:, sl], C, n, m, parts)
+        if terms is not None:
+            terms.append(parts)
         outs.append(out)
     y = torch.cat(outs, dim=1)[:, :s]
     return y.to(q.dtype), (C, n, m)

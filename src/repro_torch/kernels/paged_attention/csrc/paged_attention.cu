@@ -1,183 +1,405 @@
-// Paged decode attention for Hopper: one new query token per sequence
-// against that sequence's KV pages.  bf16 in and out, f32 math.
+// Paged decode attention for Hopper, split over pages (flash-decoding): one
+// new query token per sequence against that sequence's KV pages.  bf16 in
+// and out, f32 math.
 //
 // Replaces the TPU kernel repro/kernels/paged_attention/paged_attention.py
 // (paged_attention_kernel, body _paged_kernel): pages addressed through a
-// block table, GQA computed as (KV, H/KV, D), an online softmax over pages,
-// pages past ceil(len/page) skipped.
+// block table, GQA computed as (KV, H/KV, D) without repeating K/V, q
+// pre-scaled in f32, positions at or past the length masked, pages past
+// ceil(len/page) not read (n_pages clipped to pages_max), denominator
+// max(l, 1e-30), so a length-0 row gives zeros.
 //
 // What bounds it on the H100: each cached key and value is read once and
-// used for H/KV query heads, about 4*(H/KV) operations per 4 bytes, so it is
-// bound by bytes (the KV cache stream).  What the design does about it: one
-// block per (sequence, KV head) reads that head's pages exactly once with
-// 16-byte loads and serves all H/KV query heads from shared memory, and
-// blocks of short sequences stop at their own length.  The block walks its
-// pages in order, one page in flight at a time, so a long sequence is
-// latency-bound; a split over pages with a final reduction is later work.
+// used for the H/KV query heads of its KV head, about 4*(H/KV) operations
+// per 4 bytes read, far below the card's ~295 operations per byte: the
+// bytes of the live pages bound it.  What the design does about that:
+// - Split over pages.  Block (split, KV head x head group, sequence) takes
+//   pages [split*pps, min((split+1)*pps, n_pages)) of its row.  pps (pages
+//   per split) is the host's choice from B, KV, pages_max and page only
+//   (ops.pages_per_split; the lengths stay on the device), so a long row's
+//   pages are read by many SMs side by side instead of by one in turn.  A
+//   block whose split starts at or past its row's n_pages returns at once.
+// - Several pages in flight.  The split's block-table entries are read
+//   into shared memory first; its pages then stream through a ring of
+//   NSTAGE page stages (K and V) with 16-byte cp.async copies, NSTAGE - 1
+//   pages ahead of the one being computed.
+// - No single-thread phase.  Thread t owns the 16-byte chunk t % (D/8) of a
+//   K/V row and belongs to row group t / (D/8).  q of the block's query
+//   heads sits in registers, pre-scaled in f32.  Row group rg takes tokens
+//   rg, rg + NRG, ... of each page: a score is 8 products per lane summed
+//   over the group's lanes by shuffles, and the group keeps its own online
+//   softmax (m, l, acc) per query head in registers.  Every page load serves
+//   all the block's query heads (up to HEADS_MAX; more go to further head
+//   groups, which read the pages again).
+// - Merge.  The row groups are merged in shared memory by log-sum-exp, one
+//   thread per output element; a row whose pages fit one split writes its
+//   output there.  Otherwise each split writes (m, l, acc) in f32 to the
+//   workspace, and the last block of its (sequence, KV head, head group) to
+//   finish (an atomic ticket taken after __threadfence()) merges the live
+//   splits in split order, M = max m_i,
+//     out = sum e^{m_i-M} acc_i / max(sum e^{m_i-M} l_i, 1e-30),
+//   and leaves its counter at zero.  One launch per call.
+// - Workspace and counters.  The wrapper takes the workspace from torch's
+//   caching allocator on the current stream at every call.  The counters
+//   (one int per sequence, KV head and head group) are a zeroed tensor the
+//   wrapper keeps per (device, stream): every launch leaves them at zero, so
+//   the calls of one stream share them in order and two streams never do.
+// - Host: cudaFuncSetAttribute is called once per process, device,
+//   instantiation and larger shared-memory size, and not at all below the
+//   default 48 KB (olmo-1b's shapes need 32 KB).
 //
 // Layout: q (B, H, D), k_pages and v_pages (P, page, KV, D), block_tables
-// (B, pages_max) int32, lengths (B,) int32, out (B, H, D); all contiguous.
-// Grid (KV, B), 128 threads.  Constants follow _paged_kernel: NEG_INF =
-// -1e30, denominator max(l, 1e-30).
+// (B, pages_max) int32, lengths (B,) int32, out (B, H, D); all contiguous,
+// q and the pages 16-byte aligned, D in {32, 64, 128, 256}.  Grid (splits,
+// KV * groups, B), 128 threads.  Workspace (B, KV * groups, splits, hb,
+// D + 2) f32 with hb = min(H/KV, HEADS_MAX): each slot holds acc (hb x D),
+// then m (hb), then l (hb).  Workspace and counters are needed only when
+// splits > 1.  Constants follow _paged_kernel: NEG_INF = -1e30,
+// denominator max(l, 1e-30).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
+constexpr int NSTAGE = 4;         // pages in the shared-memory ring
+constexpr int HEADS_MAX = 8;      // query heads one block serves
 constexpr float NEG_INF = -1e30f;
+constexpr size_t SMEM_DEFAULT = 47 * 1024;  // under the 48 KB default
+constexpr size_t SMEM_MAX = 227 * 1024;
+constexpr int MAX_DEVICES = 64;
 
-struct Layout {
-  int rep, page, d;
-  size_t q, kv, s, acc, rows;  // byte offsets
-  size_t total;
-  __host__ __device__ Layout(int rep_, int page_, int d_)
-      : rep(rep_), page(page_), d(d_) {
-    q = 0;                                                  // rep*d f32
-    kv = q + sizeof(float) * rep * d;                       // 2 * page*d bf16
-    s = kv + 2 * sizeof(__nv_bfloat16) * page * d;          // rep*page f32
-    acc = s + sizeof(float) * ((rep * page + 3) / 4 * 4);   // rep*d f32
-    rows = acc + sizeof(float) * rep * d;                   // 3*rep f32
-    total = rows + sizeof(float) * 3 * rep;
-  }
+struct Params {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const int* block_tables;
+  const int* lengths;
+  __nv_bfloat16* out;
+  float* ws;        // per-split partials; null when splits == 1
+  int* counters;    // tickets, zero at entry and exit; null when splits == 1
+  int h, kv, rep, hb, groups, page, pages_max, pps, splits;
+  float scale;
 };
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// 8 bf16 (16 bytes) to f32: element 2i is word i's low half
+__device__ __forceinline__ void unpack8(const uint4 raw, float (&f)[8]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Page `pid`'s K and V rows of KV head g into one ring stage (K then V)
+template <int D>
+__device__ __forceinline__ void load_page(__nv_bfloat16* ks, const Params& p,
+                                          int pid, int g) {
+  constexpr int LPR = D / 8;
+  __nv_bfloat16* vs = ks + p.page * D;
+  const size_t base = ((size_t)pid * p.page * p.kv + g) * D;
+  for (int c = threadIdx.x; c < p.page * LPR; c += THREADS) {
+    const int tok = c / LPR, ch = c % LPR;
+    const size_t off = base + (size_t)tok * p.kv * D + ch * 8;
+    cp_async16(ks + tok * D + ch * 8, p.k + off);
+    cp_async16(vs + tok * D + ch * 8, p.v + off);
+  }
+}
+
+template <int D, int R>
+size_t smem_bytes(int page, int pps) {
+  constexpr int NRG = THREADS / (D / 8);
+  const size_t ring = (size_t)NSTAGE * 2 * page * D * sizeof(__nv_bfloat16)
+                      + sizeof(int) * pps;
+  const size_t merge = sizeof(float) * (size_t)NRG * R * (D + 2);
+  return ring > merge ? ring : merge;
+}
+
+// R: the query heads a block holds in registers (>= its heads, <= HEADS_MAX)
+template <int D, int R>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k_pages,
-                    const __nv_bfloat16* __restrict__ v_pages,
-                    const int* __restrict__ block_tables,
-                    const int* __restrict__ lengths,
-                    __nv_bfloat16* __restrict__ out,
-                    int h, int kv, int d, int page, int pages_max,
-                    float scale) {
-  const int rep = h / kv;
-  const Layout L(rep, page, d);
+paged_split_kernel(const Params p) {
+  constexpr int LPR = D / 8;            // lanes per K/V row, 8 elements each
+  constexpr int NRG = THREADS / LPR;    // row groups
   extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem + L.q);
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + L.kv);
-  __nv_bfloat16* v_s = k_s + page * d;
-  float* s_s = reinterpret_cast<float*>(smem + L.s);
-  float* acc_s = reinterpret_cast<float*>(smem + L.acc);
-  float* m_s = reinterpret_cast<float*>(smem + L.rows);
-  float* l_s = m_s + rep;
-  float* corr_s = l_s + rep;
+  __shared__ int is_last;
+  const int split = blockIdx.x, bg = blockIdx.y, b = blockIdx.z;
+  const int g = bg / p.groups, h0 = (bg % p.groups) * HEADS_MAX;
+  const int nh = min(HEADS_MAX, p.rep - h0);   // this block's query heads
+  const int t = threadIdx.x, rg = t / LPR, cl = t % LPR;
 
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const int g = blockIdx.x, b = blockIdx.y;
-  const int length = lengths[b];
-  int n_pages = (length + page - 1) / page;
-  if (n_pages > pages_max) n_pages = pages_max;
-
-  // this KV head's query heads g*rep .. g*rep+rep-1, pre-scaled in f32
-  const __nv_bfloat16* qb = q + ((size_t)b * h + (size_t)g * rep) * d;
-  for (int i = t; i < rep * d; i += THREADS) {
-    q_s[i] = __bfloat162float(qb[i]) * scale;
-    acc_s[i] = 0.f;
+  const int length = max(p.lengths[b], 0);
+  const int n_pages =
+      min(length / p.page + (length % p.page != 0), p.pages_max);
+  const int live = (n_pages + p.pps - 1) / p.pps;   // splits with pages
+  __nv_bfloat16* ob = p.out + ((size_t)b * p.h + (size_t)g * p.rep + h0) * D;
+  if (split >= live) {
+    if (split == 0)   // length 0: acc 0 / max(0, 1e-30), as the reference
+      for (int i = t; i < nh * D; i += THREADS) ob[i] = __float2bfloat16(0.f);
+    return;
   }
-  for (int r = t; r < rep; r += THREADS) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-  }
+  const int j0 = split * p.pps;
+  const int np = min(j0 + p.pps, n_pages) - j0;   // >= 1
 
-  const int chunks = d / 8;  // 16-byte chunks per row
-  for (int j = 0; j < n_pages; ++j) {
-    const int pid = block_tables[(size_t)b * pages_max + j];
-    __syncthreads();  // previous page's readers are done
-    for (int i = t; i < page * chunks; i += THREADS) {
-      const int tok = i / chunks, c8 = (i % chunks) * 8;
-      const size_t off = (((size_t)pid * page + tok) * kv + g) * d + c8;
-      *reinterpret_cast<uint4*>(k_s + tok * d + c8) =
-          *reinterpret_cast<const uint4*>(k_pages + off);
-      *reinterpret_cast<uint4*>(v_s + tok * d + c8) =
-          *reinterpret_cast<const uint4*>(v_pages + off);
+  const int stage = 2 * p.page * D;               // K page, then V page
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  int* pid_s = reinterpret_cast<int*>(ring + (size_t)NSTAGE * stage);
+  for (int i = t; i < np; i += THREADS)
+    pid_s[i] = p.block_tables[(size_t)b * p.pages_max + j0 + i];
+
+  float qr[R][8];
+  const __nv_bfloat16* qb =
+      p.q + ((size_t)b * p.h + (size_t)g * p.rep + h0) * D + cl * 8;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r < nh) {
+      unpack8(*reinterpret_cast<const uint4*>(qb + (size_t)r * D), qr[r]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) qr[r][j] *= p.scale;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) qr[r][j] = 0.f;
     }
-    __syncthreads();
+  }
+  float m[R], l[R], acc[R][8];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+  }
+  // the lanes of this thread's row group (shuffles stay inside it)
+  const unsigned gmask =
+      LPR == 32 ? 0xffffffffu
+                : (((1u << (LPR & 31)) - 1u) << ((t & 31) & ~(LPR - 1)));
+  __syncthreads();   // pid_s
 
-    // scores: one warp per (query head, token) pair, lanes split D
-    for (int pair = warp; pair < rep * page; pair += WARPS) {
-      const int r = pair / page, tok = pair % page;
-      const __nv_bfloat162* krow =
-          reinterpret_cast<const __nv_bfloat162*>(k_s + tok * d);
-      const float* qrow = q_s + r * d;
-      float acc = 0.f;
-      for (int d2 = lane; d2 < d / 2; d2 += 32) {
-        const float2 kf = __bfloat1622float2(krow[d2]);
-        acc = fmaf(qrow[2 * d2], kf.x, acc);
-        acc = fmaf(qrow[2 * d2 + 1], kf.y, acc);
+#pragma unroll
+  for (int i = 0; i < NSTAGE - 1; ++i) {
+    if (i < np) load_page<D>(ring + i * stage, p, pid_s[i], g);
+    cp_async_commit();
+  }
+  for (int i = 0; i < np; ++i) {
+    const int ahead = i + NSTAGE - 1;
+    if (ahead < np)
+      load_page<D>(ring + (ahead % NSTAGE) * stage, p, pid_s[ahead], g);
+    cp_async_commit();           // (an empty group near the end)
+    cp_async_wait<NSTAGE - 1>(); // page i landed (this thread's copies)
+    __syncthreads();             // ... and every thread's
+    const __nv_bfloat16* ks = ring + (i % NSTAGE) * stage;
+    const __nv_bfloat16* vs = ks + p.page * D;
+    const int valid = min(p.page, length - (j0 + i) * p.page);
+    for (int tok = rg; tok < valid; tok += NRG) {
+      float kf[8], vf[8];
+      unpack8(*reinterpret_cast<const uint4*>(ks + tok * D + cl * 8), kf);
+      unpack8(*reinterpret_cast<const uint4*>(vs + tok * D + cl * 8), vf);
+      float s[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float a = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) a = fmaf(qr[r][j], kf[j], a);
+        s[r] = a;
       }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0)
-        s_s[r * page + tok] = (j * page + tok < length) ? acc : NEG_INF;
-    }
-    __syncthreads();
-
-    // online softmax: one thread per query head
-    for (int r = t; r < rep; r += THREADS) {
-      float* row = s_s + r * page;
-      const float m_prev = m_s[r];
-      float mx = NEG_INF;
-      for (int tok = 0; tok < page; ++tok) mx = fmaxf(mx, row[tok]);
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int tok = 0; tok < page; ++tok) {
-        const float p = expf(row[tok] - m_new);
-        row[tok] = p;
-        sum += p;
+      for (int o = LPR / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int r = 0; r < R; ++r) s[r] += __shfl_xor_sync(gmask, s[r], o);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < nh) {
+          const float mn = fmaxf(m[r], s[r]);
+          const float corr = expf(m[r] - mn), pe = expf(s[r] - mn);
+          l[r] = fmaf(l[r], corr, pe);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[r][j] = fmaf(acc[r][j], corr, pe * vf[j]);
+          m[r] = mn;
+        }
       }
-      const float corr = expf(m_prev - m_new);
-      m_s[r] = m_new;
-      l_s[r] = l_s[r] * corr + sum;
-      corr_s[r] = corr;
     }
-    __syncthreads();
+    __syncthreads();             // stage i % NSTAGE free for reuse
+  }
+  cp_async_wait<0>();
 
-    // acc = acc * corr + P @ V
-    for (int i = t; i < rep * d; i += THREADS) {
-      const int r = i / d, dd = i % d;
-      const float* prow = s_s + r * page;
-      float a = acc_s[i] * corr_s[r];
-      for (int tok = 0; tok < page; ++tok)
-        a = fmaf(prow[tok], __bfloat162float(v_s[tok * d + dd]), a);
-      acc_s[i] = a;
+  // merge the row groups: scratch over the ring (every thread is past it)
+  float* m_s = reinterpret_cast<float*>(smem);   // [rg][r]
+  float* l_s = m_s + NRG * R;                    // [rg][r]
+  float* a_s = l_s + NRG * R;                    // [rg][r][D]
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r < nh) {
+      if (cl == 0) {
+        m_s[rg * R + r] = m[r];
+        l_s[rg * R + r] = l[r];
+      }
+      float4* dst = reinterpret_cast<float4*>(a_s + (rg * R + r) * D + cl * 8);
+      dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
     }
   }
-
   __syncthreads();
-  __nv_bfloat16* ob = out + ((size_t)b * h + (size_t)g * rep) * d;
-  for (int i = t; i < rep * d; i += THREADS)
-    ob[i] = __float2bfloat16(acc_s[i] / fmaxf(l_s[i / d], 1e-30f));
+  const size_t slot_floats = (size_t)p.hb * (D + 2);
+  float* row_ws = live == 1 ? nullptr
+      : p.ws + ((size_t)b * gridDim.y + bg) * p.splits * slot_floats;
+  for (int e = t; e < nh * D; e += THREADS) {
+    const int r = e / D, d = e % D;
+    float M = NEG_INF;
+    for (int i = 0; i < NRG; ++i) M = fmaxf(M, m_s[i * R + r]);
+    float L = 0.f, A = 0.f;
+    for (int i = 0; i < NRG; ++i) {   // groups that saw no token weigh 0
+      const float w = expf(m_s[i * R + r] - M);
+      L = fmaf(l_s[i * R + r], w, L);
+      A = fmaf(a_s[(i * R + r) * D + d], w, A);
+    }
+    if (live == 1) {
+      ob[e] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+    } else {
+      float* slot = row_ws + split * slot_floats;
+      slot[e] = A;
+      if (d == 0) {
+        slot[p.hb * D + r] = M;
+        slot[p.hb * D + p.hb + r] = L;
+      }
+    }
+  }
+  if (live == 1) return;
+
+  // the last split of this (sequence, KV head, head group) merges them all
+  __threadfence();
+  __syncthreads();
+  int* counter = p.counters + (size_t)b * gridDim.y + bg;
+  if (t == 0) is_last = atomicAdd(counter, 1) == live - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int e = t; e < nh * D; e += THREADS) {
+    const int r = e / D;
+    float M = NEG_INF;
+    for (int i = 0; i < live; ++i)
+      M = fmaxf(M, __ldcg(row_ws + i * slot_floats + p.hb * D + r));
+    float L = 0.f, A = 0.f;
+    for (int i = 0; i < live; ++i) {
+      const float* slot = row_ws + i * slot_floats;
+      const float w = expf(__ldcg(slot + p.hb * D + r) - M);
+      L = fmaf(__ldcg(slot + p.hb * D + p.hb + r), w, L);
+      A = fmaf(__ldcg(slot + e), w, A);
+    }
+    ob[e] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+  }
+  if (t == 0) *counter = 0;   // every other split of the row has ticketed
+}
+
+// Raise the kernel's dynamic shared-memory limit once per process, device
+// and larger size; nothing below the default.
+template <int D, int R>
+cudaError_t allow_smem(size_t bytes) {
+  if (bytes <= SMEM_DEFAULT) return cudaSuccess;
+  static std::mutex mu;
+  static size_t allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (bytes <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(paged_split_kernel<D, R>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) allowed[dev] = bytes;
+  return err;
+}
+
+template <int D, int R>
+int launch(const Params& p, int b, cudaStream_t stream) {
+  const size_t smem = smem_bytes<D, R>(p.page, p.pps);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem<D, R>(smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.splits, p.kv * p.groups, b);
+  paged_split_kernel<D, R><<<grid, THREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_d(const Params& p, int b, cudaStream_t stream) {
+  const int heads = p.hb;   // heads per block, at most HEADS_MAX
+  if (heads <= 1) return launch<D, 1>(p, b, stream);
+  if (heads <= 2) return launch<D, 2>(p, b, stream);
+  if (heads <= 4) return launch<D, 4>(p, b, stream);
+  return launch<D, 8>(p, b, stream);
 }
 
 }  // namespace
 
-// C interface (ctypes).  Returns a cudaError_t: 0 after a launch that was
-// accepted.
+// C interface (ctypes).  pages_per_split >= 1 pages per split; ws and
+// counters may be null when pages_per_split >= pages_max (one split), and
+// otherwise hold B * KV * groups * splits * hb * (D + 2) floats and
+// B * KV * groups zeroed ints (groups = ceil((H/KV) / 8), hb = min(H/KV,
+// 8), splits = ceil(pages_max / pages_per_split)).  Returns a cudaError_t:
+// 0 after a launch that was accepted.
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages,
                                    const void* block_tables,
-                                   const void* lengths, void* out, int b,
-                                   int h, int kv, int d, int page,
-                                   int pages_max, float scale, void* stream) {
+                                   const void* lengths, void* out, void* ws,
+                                   void* counters, int b, int h, int kv,
+                                   int d, int page, int pages_max,
+                                   int pages_per_split, float scale,
+                                   void* stream) {
   if (b == 0) return 0;
-  if (h % kv != 0 || d % 8 != 0) return (int)cudaErrorInvalidValue;
-  const Layout L(h / kv, page, d);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(kv, b);
-  paged_decode_kernel<<<grid, THREADS, L.total,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pages),
-      static_cast<const __nv_bfloat16*>(v_pages),
-      static_cast<const int*>(block_tables), static_cast<const int*>(lengths),
-      static_cast<__nv_bfloat16*>(out), h, kv, d, page, pages_max, scale);
-  return (int)cudaGetLastError();
+  if (b < 0 || kv < 1 || h % kv != 0 || page < 1 || pages_max < 1 ||
+      pages_per_split < 1 || b > 65535)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k_pages);
+  p.v = static_cast<const __nv_bfloat16*>(v_pages);
+  p.block_tables = static_cast<const int*>(block_tables);
+  p.lengths = static_cast<const int*>(lengths);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.ws = static_cast<float*>(ws);
+  p.counters = static_cast<int*>(counters);
+  p.h = h;
+  p.kv = kv;
+  p.rep = h / kv;
+  p.hb = p.rep < HEADS_MAX ? p.rep : HEADS_MAX;
+  p.groups = (p.rep + HEADS_MAX - 1) / HEADS_MAX;
+  p.page = page;
+  p.pages_max = pages_max;
+  p.pps = pages_per_split < pages_max ? pages_per_split : pages_max;
+  p.splits = (pages_max + p.pps - 1) / p.pps;
+  p.scale = scale;
+  if ((long long)kv * p.groups > 65535) return (int)cudaErrorInvalidValue;
+  if (p.splits > 1 && (ws == nullptr || counters == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32: return launch_d<32>(p, b, s);
+    case 64: return launch_d<64>(p, b, s);
+    case 128: return launch_d<128>(p, b, s);
+    case 256: return launch_d<256>(p, b, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

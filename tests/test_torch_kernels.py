@@ -261,6 +261,136 @@ class TestPagedPlain:
         assert torch.equal(out, paged_ref_torch(*targs))
 
 
+def _paged_split_emulation(q, k_pages, v_pages, block_tables, lengths,
+                           pages_per_split):
+    """Test-only emulation of the CUDA paged kernel's arithmetic in f32, on
+    CPU tensors: q pre-scaled in f32; for each live split of a row (its
+    pages from ``pa_ops.split_ranges``), 128 / (D/8) row groups, group rg
+    taking tokens rg, rg + groups, ... of each page below the length, each
+    with its own online softmax (m, l, acc) per query head; the groups
+    merged by log-sum-exp; a row of one split normalised there, and the
+    splits of a longer row merged by log-sum-exp (M = max m_i, out =
+    sum e^{m_i-M} acc_i / max(sum e^{m_i-M} l_i, 1e-30)).  A row with no
+    page gives zeros.  Returns (B, H, D) f32 before the kernel's rounding
+    to bf16."""
+    b, h, d = q.shape
+    page, kv = k_pages.shape[1], k_pages.shape[2]
+    pages_max = block_tables.shape[1]
+    rep, groups = h // kv, 128 // (d // 8)
+    scale = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32)
+    qf = (q.float() * scale).view(b, kv, rep, d)
+    tables = block_tables.long()
+    kf, vf = (t[tables].reshape(b, pages_max * page, kv, d).float()
+              for t in (k_pages, v_pages))
+    out = torch.zeros(b, kv, rep, d)
+
+    def lse_merge(parts):
+        m = torch.stack([p[0] for p in parts])
+        w = torch.exp(m - m.amax(0))
+        return (m.amax(0), (w * torch.stack([p[1] for p in parts])).sum(0),
+                (w[..., None] * torch.stack([p[2] for p in parts])).sum(0))
+
+    for i in range(b):
+        length = int(lengths[i])
+        splits = []
+        for j0, j1 in pa_ops.split_ranges(length, page, pages_max,
+                                          pages_per_split):
+            parts = []
+            for rg in range(groups):
+                m = torch.full((kv, rep), NEG_INF)
+                l, acc = torch.zeros(kv, rep), torch.zeros(kv, rep, d)
+                for j in range(j0, j1):
+                    for tok in range(rg, min(page, length - j * page),
+                                     groups):
+                        pos = j * page + tok
+                        s = (qf[i] * kf[i, pos][:, None]).sum(-1)
+                        mn = torch.maximum(m, s)
+                        corr, p = torch.exp(m - mn), torch.exp(s - mn)
+                        l = l * corr + p
+                        acc = (acc * corr[..., None]
+                               + p[..., None] * vf[i, pos][:, None])
+                        m = mn
+                parts.append((m, l, acc))
+            splits.append(lse_merge(parts))
+        if splits:
+            _, l, acc = lse_merge(splits) if len(splits) > 1 else splits[0]
+            out[i] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.view(b, h, d)
+
+
+#: split sizes: one page, four pages, the whole row (pages_max)
+PAGED_SPLITS = [1, 4, None]
+
+
+class TestPagedSplitArithmetic:
+    """The arithmetic of the split-over-pages CUDA kernel, emulated on the
+    CPU, against the reference's Pallas kernel in interpret mode and its
+    jnp oracle (2e-4 in f32, 3e-2 in bf16), and against the plain
+    version."""
+
+    @pytest.mark.parametrize("b,h,kv,d,page,pages_max,n_pages", PAGED_SHAPES)
+    @pytest.mark.parametrize("pps", PAGED_SPLITS)
+    @pytest.mark.parametrize("dt", list(DTYPES))
+    def test_matches_pallas_kernel_and_oracle(self, b, h, kv, d, page,
+                                              pages_max, n_pages, pps, dt):
+        jargs, targs = _paged_case(np.random.default_rng(0), dt, b, h, kv, d,
+                                   page, pages_max, n_pages)
+        out = _paged_split_emulation(*targs, pps or pages_max)
+        got = out.to(DTYPES[dt][2])
+        tol = DTYPES[dt][3]
+        _close(paged_attention_kernel(*jargs, interpret=True), got, tol)
+        _close(paged_attention_ref(*jargs), got, tol)
+        plain = paged_ref_torch(*(t.float() if t.is_floating_point() else t
+                                  for t in targs))
+        np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=2e-4)
+
+    def test_lengths_at_the_edges(self):
+        """Length 0 (zeros), 1, page +- 1, a split boundary +- 1, the whole
+        table and past it, against the Pallas kernel in interpret mode."""
+        page, pages_max, pps = 8, 6, 2
+        lengths = [0, 1, page - 1, page + 1, pps * page - 1, pps * page,
+                   pps * page + 1, pages_max * page, pages_max * page + 9]
+        jargs, targs = _paged_case(np.random.default_rng(6), "f32",
+                                   len(lengths), 4, 2, 32, page, pages_max,
+                                   12, lengths=lengths)
+        out = _paged_split_emulation(*targs, pps)
+        _close(paged_attention_kernel(*jargs, interpret=True), out, 2e-4)
+        assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+SPLIT_LENGTHS = [0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1023, 1024,
+                 1025, 5000]
+
+
+class TestPagedSplitPlan:
+    """The host's split plan (``ops.pages_per_split``, from the shapes
+    alone) and the pages each split covers (``ops.split_ranges``, as the
+    kernel computes them)."""
+
+    @pytest.mark.parametrize("length", SPLIT_LENGTHS)
+    @pytest.mark.parametrize("pps", [1, 3, 4, 64, 100])
+    def test_splits_cover_every_page_once(self, length, pps):
+        page, pages_max = 16, 64
+        n_pages = min(-(-length // page), pages_max)
+        ranges = pa_ops.split_ranges(length, page, pages_max, pps)
+        covered = [j for j0, j1 in ranges for j in range(j0, j1)]
+        assert covered == list(range(n_pages))
+        assert all(0 < j1 - j0 <= pps for j0, j1 in ranges)
+        assert len(ranges) == -(-n_pages // pps)
+
+    @pytest.mark.parametrize("b,kv,pages_max,page", [
+        (8, 16, 64, 16), (1, 16, 64, 16), (4, 8, 64, 16), (64, 8, 256, 16),
+        (256, 32, 64, 16), (2, 2, 3, 8), (3, 4, 40, 8), (1, 1, 1, 1)])
+    def test_pages_per_split(self, b, kv, pages_max, page):
+        pps = pa_ops.pages_per_split(b, kv, pages_max, page)
+        splits = -(-pages_max // pps)
+        assert 1 <= pps <= pages_max
+        assert pps == pages_max or pps * page >= pa_ops.SPLIT_TOKENS
+        assert pps == pages_max or b * kv * splits <= pa_ops.GRID_CAP
+        if (b, kv, pages_max, page) == (8, 16, 64, 16):
+            assert pps == 4      # the decode timing shape: 64-token splits
+
+
 # tests/test_kernels.py's mLSTM sweep: (b, s, h, dk, dv, chunk)
 MLSTM_SHAPES = [
     (2, 64, 2, 32, 64, 16),
@@ -387,6 +517,37 @@ class TestMlstmPlain:
                               initial_state=(torch.zeros(1, 2, 16, 16),
                                              torch.zeros(1, 2, 16),
                                              torch.zeros(1, 2)))
+
+    @pytest.mark.parametrize("seed", [0, 8])
+    def test_probe_worst_row_terms_sum(self, seed):
+        """The probe's readout of the worst row: in every column (kernel,
+        plain, f64) the denominator's two parts sum to q.n, the denominator
+        is max(|q.n|, e^-m), and the numerator's two parts over the
+        denominator give y; the intra-chunk sum as W's row and as the plain
+        version's q . (sum_s w_s k_s) agree in f64."""
+        from repro_torch.kernels.mlstm_scan import probe
+        got = probe.read(seed, "cpu", s=40, dk=16, dv=32, chunk=16)
+        row = got["worst_row"]
+        assert row["kappa_den"] >= 1 and row["kappa_num"] >= 1
+        for impl, rel in (("kernel", 1e-6), ("plain", 1e-6), ("f64", 1e-12)):
+            v = {name: row[name][impl] for name in
+                 ("qn_intra", "qn_inter", "qdotn", "denom", "exp_neg_m",
+                  "num_intra", "num_inter", "y")}
+            assert v["qdotn"] == pytest.approx(v["qn_intra"] + v["qn_inter"],
+                                               rel=rel, abs=1e-12)
+            assert v["denom"] == pytest.approx(
+                max(abs(v["qdotn"]), v["exp_neg_m"]), rel=max(rel, 1e-6))
+            assert (v["num_intra"] + v["num_inter"]) / v["denom"] == \
+                pytest.approx(v["y"], rel=1e-6)
+        from repro_torch.kernels.mlstm_scan.probe import draw
+        from repro_torch.kernels.mlstm_scan.ref import mlstm_chunked_ref
+        terms = []
+        mlstm_chunked_ref(*draw(seed, torch.device("cpu"), 1, 40, 4, 16, 32),
+                          chunk=16, dtype=torch.float64, terms=terms)
+        c, tl = row["chunk"], row["t"] % 16
+        w_row = terms[c]["W"][row["b"], tl, row["h"], :tl + 1].sum()
+        assert float(w_row) == pytest.approx(row["qn_intra"]["f64"],
+                                             rel=1e-9, abs=1e-12)
 
     @pytest.mark.parametrize("seed", [0, 8])
     def test_probe_reads_kernel_and_plain_against_f64(self, seed):
