@@ -4,7 +4,9 @@
 runs the plain version (``ref.mlstm_chunked_ref``) for tensors on the CPU.
 There is no fallback: a CUDA tensor the kernel does not take raises.
 ``mlstm_scan.launches`` counts kernel launches (one per call; the call
-runs the source's three kernels, stats, scores and out, in order).
+runs the source's passes in order: stats, products (scores and the
+chunks' state contributions), combine (more than one chunk), out, after
+a widening of bf16 inputs).
 """
 
 from __future__ import annotations
@@ -16,10 +18,6 @@ from typing import Optional
 import torch
 
 from .ref import mlstm_chunked_ref
-
-#: largest q/k head dim the kernel takes (its state-update tiling)
-MAX_DK = 512
-
 
 def _check(q, k, v, log_i, log_f, chunk, initial_state):
     if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 \
@@ -63,27 +61,45 @@ def mlstm_scan_with_workspace(q, k, v, log_i, log_f, *, chunk: int,
     ``workspace_views`` names it (what ``probe`` reads)."""
     _check(q, k, v, log_i, log_f, chunk, initial_state)
     y, state, ws = _launch(q, k, v, log_i, log_f, chunk, initial_state)
-    b, s, h, _ = q.shape
-    return y, state, workspace_views(ws, b, s, h, chunk)
+    b, s, h, dk = q.shape
+    return y, state, workspace_views(ws, b, s, h, dk, v.shape[3], chunk)
 
 
-def workspace_views(ws: torch.Tensor, b: int, s: int, h: int,
-                    chunk: int) -> dict:
+def _up4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def workspace_views(ws: torch.Tensor, b: int, s: int, h: int, dk: int,
+                    dv: int, chunk: int) -> dict:
     """The kernel's f32 workspace cut as ``carve`` in csrc/mlstm_scan.cu
-    cuts it, per (b*H + h): F, qn, kvw, interw, denom over the padded
-    sequence (B*H, nc*chunk); mprev, wcarry per chunk (B*H, nc); W per
-    chunk (B*H, nc, chunk, chunk), the weighted scores (q_t . k_s)
-    e^{D[t,s]-m_t} (zero above the diagonal)."""
+    cuts it (every part starting on a multiple of 4 floats), per (b*H + h):
+    over the padded sequence (B*H, nc*chunk) F64 (each chunk's cumulative
+    log forget gate, in f64), dmax (max_s D[t,s] within the chunk), mt
+    (the stabiliser m_t), interw (e^{m+F_t-m_t}), rowsum (sum_s W[t,s]),
+    qn (the denominator's inter-chunk term e^{m+F_t-m_t} q_t . n) and
+    denom; rsp (B*H, nc*chunk, chunk / 64 rounded up), W's row sums by key
+    tile of 64; per chunk (B*H, nc) Ftot, g (the chunk's max of (F_tot -
+    F_s) + li_s) and wcarry; W per chunk (B*H, nc, chunk, chunk), the
+    weighted scores (q_t . k_s) e^{D[t,s]-m_t} (zero above the diagonal);
+    Cst (B*H, nc, dk, dv) and nst (B*H, nc, dk): the state at each chunk's
+    start from chunk 1 on when there is more than one chunk (slot 0 holds
+    chunk 0's own contribution)."""
     nc = -(-s // chunk)
-    bh, sp = b * h, nc * chunk
-    shapes = [("F", (bh, sp)), ("qn", (bh, sp)), ("kvw", (bh, sp)),
-              ("interw", (bh, sp)), ("denom", (bh, sp)), ("mprev", (bh, nc)),
-              ("wcarry", (bh, nc)), ("W", (bh, nc, chunk, chunk))]
+    bh, sp, ldw = b * h, nc * chunk, _up4(chunk)
+    shapes = [("F64", (bh, 2 * sp))]
+    shapes += [(name, (bh, sp)) for name in
+               ("dmax", "mt", "interw", "rowsum", "qn", "denom")]
+    shapes += [("rsp", (bh, sp, -(-chunk // 64)))]
+    shapes += [(name, (bh, nc)) for name in ("Ftot", "g", "wcarry")]
+    shapes += [("W", (bh, nc, chunk, ldw)), ("Cst", (bh, nc, dk, dv)),
+               ("nst", (bh, nc, dk))]
     views, off = {}, 0
     for name, shape in shapes:
         n = math.prod(shape)
         views[name] = ws[off:off + n].view(shape)
-        off += n
+        off += _up4(n)
+    views["F64"] = views["F64"].view(torch.float64)
+    views["W"] = views["W"][..., :chunk]
     return views
 
 
@@ -105,25 +121,33 @@ def _launch(q, k, v, log_i, log_f, chunk, initial_state):
                              f"{q.device}, got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"mlstm_scan: {name} must be contiguous")
+        if name in ("q", "k", "v", "C") and t.data_ptr() % 16:
+            raise ValueError(f"mlstm_scan: {name} must start on 16 bytes "
+                             f"(the kernel copies it in 16-byte pieces)")
     b, s, h, dk = q.shape
     dv = v.shape[3]
-    if dk > MAX_DK:
-        raise ValueError(f"mlstm_scan: dk {dk} > {MAX_DK}")
+    if dk % 4 or dv % 4:
+        raise ValueError(f"mlstm_scan: dk {dk} and dv {dv} must be "
+                         f"multiples of 4")
+    if -(-s // chunk) * b * h > 65535:
+        raise ValueError(f"mlstm_scan: {-(-s // chunk)} chunks x {b * h} "
+                         f"heads > 65535 (the out pass's grid)")
+    bf16 = int(q.dtype == torch.bfloat16)
     lib = _lib()
     dev, f32 = q.device, torch.float32
     y = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
     C = torch.empty((b, h, dk, dv), dtype=f32, device=dev)
     n = torch.empty((b, h, dk), dtype=f32, device=dev)
     m = torch.empty((b, h), dtype=f32, device=dev)
-    ws = torch.empty(lib.mlstm_scan_workspace_bytes(b, s, h, chunk) // 4,
-                     dtype=f32, device=dev)
+    ws = torch.empty(
+        lib.mlstm_scan_workspace_bytes(b, s, h, dk, dv, chunk, bf16) // 4,
+        dtype=f32, device=dev)
     state = ([t.data_ptr() for t in initial_state]
              if initial_state is not None else [None] * 3)
     rc = lib.mlstm_scan_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
         log_f.data_ptr(), *state, y.data_ptr(), C.data_ptr(), n.data_ptr(),
-        m.data_ptr(), ws.data_ptr(), b, s, h, dk, dv, chunk,
-        int(q.dtype == torch.bfloat16),
+        m.data_ptr(), ws.data_ptr(), b, s, h, dk, dv, chunk, bf16,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mlstm_scan kernel launch failed: CUDA error "
@@ -144,6 +168,6 @@ def _lib() -> ctypes.CDLL:
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         ws = lib.mlstm_scan_workspace_bytes
-        ws.argtypes = [ctypes.c_int] * 4
+        ws.argtypes = [ctypes.c_int] * 7
         ws.restype = ctypes.c_size_t
     return lib

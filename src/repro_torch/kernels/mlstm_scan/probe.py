@@ -9,11 +9,15 @@ draws it (q pre-scaled, k and v normal, log_i normal x 2, log_f
 log_sigmoid(normal + 1)) from a generator seeded with it, and prints one
 JSON line per seed: for y and the final (C, n, m), max |kernel - f64|,
 max |plain - f64|, and the elements (and rows of y) outside the
-per-element criterion ``chip_smoke.py`` holds the kernel to (atol 5e-4 +
-1e-5 |plain| + 2 |plain - f64|).  Nothing is gated: it measures whether
-the kernel is as accurate as its plain version on draws other than the
-smoke's.  Runs on the card unless ``--device cpu`` (where the wrapper runs
-the plain version, so kernel and plain agree by construction).
+per-element criterion ``chip_smoke.py`` holds the kernel to
+(``criterion``): within tests/test_kernels.py's tolerance of the plain
+version (atol 5e-4, rtol 1e-5), or within C_BOUND eps32 kappa |x_f64| of
+the f64 value, kappa the element's condition number over the elementary
+products it is made of (``abs_sums``), with the largest c seen.  Nothing
+is gated: it measures whether the kernel is as accurate as f32 allows on
+draws other than the smoke's.  Runs on the card unless ``--device cpu``
+(where the wrapper runs the plain version, so kernel and plain agree by
+construction).
 
 Each line also carries ``worst_row``: the row of y (b, t, h) where the
 kernel is furthest from f64, read term by term at its worst column, with
@@ -22,9 +26,10 @@ the stabiliser m_t and e^{-m_t}; the denominator's intra-chunk sum
 sum_s W[t,s] (W[t,s] = (q_t . k_s) e^{D[t,s]-m_t}) and inter-chunk term
 e^{m+F_t-m_t} q_t . n, their sum q.n and the denominator max(|q.n|,
 e^{-m_t}); the numerator's two sums (sum_s W[t,s] v_s and e^{m+F_t-m_t}
-q_t . C) and y.  The kernel's values come from its workspace (m_t
-recomputed from its F in f32, as it computes it; its W summed in f64; C at
-the chunk's start from the kernel run on the sequence up to that chunk).
+q_t . C) and y.  The kernel's values come from its workspace (m_t, the
+row sum of its W, the inter-chunk term and the denominator as it computed
+them; its W summed again in f64 for the numerator; C at the chunk's start
+from the kernel run on the sequence up to that chunk).
 Beside them the condition numbers of the denominator and numerator over
 the f64 values, kappa = sum |terms| / |sum|: ``kappa_den_s`` over the
 terms W[t,s] and the inter-chunk term, and ``kappa_den`` and
@@ -83,23 +88,91 @@ def read(seed: int, device=None, **shape) -> dict:
     py, pst = mlstm_chunked_ref(*args, chunk=chunk, terms=pterms)
     ry, rst = mlstm_chunked_ref(*args, chunk=chunk, dtype=torch.float64,
                                 terms=rterms)
+    scales = abs_sums(args, chunk, None, rterms)
     out = {"seed": seed}
     for name, got, plain, exact in zip(("y", "C", "n", "m"), (y, *st),
                                        (py, *pst), (ry, *rst)):
-        got, plain = got.double(), plain.double()
-        bad = ((got - plain).abs() > 5e-4 + 1e-5 * plain.abs()
-               + 2.0 * (plain - exact).abs())
-        out[name] = dict(kernel_vs_f64=float((got - exact).abs().max()),
-                         plain_vs_f64=float((plain - exact).abs().max()),
-                         out_of_criterion=int(bad.sum()))
+        got_c = criterion(got, plain, exact, scales.get(name), ATOL[got.dtype])
+        out[name] = dict(kernel_vs_f64=float((got.double() - exact).abs().max()),
+                         plain_vs_f64=float((plain.double() - exact).abs().max()),
+                         out_of_criterion=got_c["out"],
+                         by_kappa=got_c["kappa"], c_max=got_c["c_max"])
         if name == "y":
-            out[name]["rows_out"] = int(bad.any(dim=-1).sum())
+            out[name]["rows_out"] = int(got_c["bad"].any(dim=-1).sum())
     out["worst_row"] = worst_row(args, chunk, y, ws, (py, pterms),
                                  (ry, rterms))
     return out
 
 
 EPS32 = 2.0 ** -23
+#: the criterion's constant c: the worst rows of y of two f32 orders of
+#: the scan (the plain version's and a chunk-serial kernel's) reached
+#: c <= 1.85 over seeds 0-15 at the probe's shape
+C_BOUND = 2.0
+#: tests/test_kernels.py's tolerances: atol by dtype, rtol 1e-5
+ATOL = {torch.float32: 5e-4, torch.bfloat16: 1e-1}
+RTOL = 1e-5
+
+
+def abs_sums(args, chunk, initial_state, rterms) -> dict:
+    """kappa |x_f64| for every element of y, C and n (f64): the sum of the
+    absolute values of the elementary products the element is made of.
+    ``rterms``: ``mlstm_chunked_ref``'s terms in f64 on ``args``.
+
+    y = num / den: (sum_s w_s |q_t|.|k_s| |v_s| + |q_t e^{m+F_t-m_t}|.|C|
+    + |y| (sum_s w_s |q_t|.|k_s| + |q_t e^{m+F_t-m_t}|.|n|)) / den, i.e.
+    (kappa_num + kappa_den) |y| with both condition numbers taken over
+    den = max(|q.n|, e^{-m_t}) (where the floor holds, q.n's error does not
+    reach y).  C: |C| w_carry + |k kv_w|^T |v| chunk by chunk, from |C0|;
+    n likewise.  m is a max of sums, held by the tolerance alone."""
+    q, k, v = (a.double() for a in args[:3])
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    pad = len(rterms) * chunk - s
+    kp, vp = (F.pad(t, (0, 0, 0, 0, 0, pad)).abs() for t in (k, v))
+    if initial_state is None:
+        C = torch.zeros((b, h, dk, dv), dtype=torch.float64, device=q.device)
+        n = torch.zeros((b, h, dk), dtype=torch.float64, device=q.device)
+    else:
+        C, n = (t.double().abs() for t in initial_state[:2])
+    ys = []
+    for c, T in enumerate(rterms):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        wq = T["w"] * T["qk_abs"]                            # (b,t,h,s)
+        num = torch.einsum("bths,bshv->bthv", wq, vp[:, sl]) \
+            + T["num_inter_abs"]
+        den_abs = wq.sum(-1) + T["qn_inter_abs"]
+        y = (T["num_intra"] + T["num_inter"]) / T["denom"][..., None]
+        ys.append((num + den_abs[..., None] * y.abs())
+                  / T["denom"][..., None])
+        kw = kp[:, sl] * T["kv_w"][..., None]
+        C = C * T["w_carry"][..., None, None] + torch.einsum(
+            "bshk,bshv->bhkv", kw, vp[:, sl])
+        n = n * T["w_carry"][..., None] + kw.sum(1)
+    return {"y": torch.cat(ys, 1)[:, :s], "C": C, "n": n}
+
+
+def criterion(got, plain, exact, scale, atol) -> dict:
+    """The per-element criterion: ``got`` within ``atol`` + RTOL |plain| of
+    the plain version (tests/test_kernels.py's tolerance), or within
+    C_BOUND eps32 ``scale`` of the f64 value ``exact`` (``scale`` =
+    kappa |x_f64| from ``abs_sums``; None: the tolerance alone).  Returns
+    the elements each arm passed (``tol``; ``kappa``: by the bound alone),
+    those outside both (``out``, and the mask ``bad``) and the largest c =
+    |got - exact| / (eps32 scale) among the elements only the bound
+    passed (0.0 if none)."""
+    got, plain = got.double(), plain.double()
+    in_tol = (got - plain).abs() <= atol + RTOL * plain.abs()
+    if scale is None:
+        c = torch.full_like(got, math.inf)
+    else:
+        c = (got - exact).abs() / (EPS32 * scale)
+    by_kappa = ~in_tol & (c <= C_BOUND)
+    bad = ~in_tol & ~by_kappa
+    return dict(tol=int(in_tol.sum()), kappa=int(by_kappa.sum()),
+                out=int(bad.sum()), bad=bad,
+                c_max=float(c[by_kappa].max()) if bool(by_kappa.any())
+                else 0.0)
 
 
 def _plain_row(y, terms, at) -> dict:
@@ -116,19 +189,19 @@ def _plain_row(y, terms, at) -> dict:
 
 
 def _kernel_row(args, chunk, y, ws, at) -> dict:
-    """The row's quantities from the kernel's workspace: m_t from its F in
-    f32 as the scores kernel computes it, its W summed in f64, and C at the
-    chunk's start from the kernel run on the sequence before the chunk."""
-    q, k, v, li, _ = args
+    """The row's quantities from the kernel's workspace: m_t, the row sum
+    of W, the inter-chunk term and the denominator as it computed them;
+    its W summed again in f64 for the numerator, and C at the chunk's start
+    from the kernel run on the sequence before the chunk."""
+    q, _, v, _, _ = args
     b, t, h, col, c, tl = at
     H = q.shape[2]
     bh, t0 = b * H + h, c * chunk
-    F = ws["F"][bh, t0:t0 + tl + 1]
-    m_t = torch.maximum(((F[-1] - F) + li[b, t0:t0 + tl + 1, h]).max(),
-                        ws["mprev"][bh, c] + F[-1])
+    m_t = ws["mt"][bh, t0 + tl]
     W = ws["W"][bh, c, tl, :tl + 1].double()
     iw = ws["interw"][bh, t0 + tl]
-    qn_intra, qn_inter = W.sum(), (iw * ws["qn"][bh, t0 + tl]).double()
+    qn_intra = ws["rowsum"][bh, t0 + tl].double()
+    qn_inter = ws["qn"][bh, t0 + tl].double()
     if c == 0:
         inter = torch.zeros((), dtype=torch.float64, device=q.device)
     else:

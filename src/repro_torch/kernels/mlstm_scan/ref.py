@@ -42,7 +42,8 @@ def _chunk_step(qb, kb, vb, li, lf, C, n, m, terms=None):
     numerator's two sums ``num_intra`` and ``num_inter``, the denominator
     ``denom``, and the magnitudes of the products the sums are made of:
     ``qk_abs`` = |q_t| . |k_s|, ``qn_inter_abs`` and ``num_inter_abs``
-    (the inter-chunk sums over |q_t e^{m+F_t-m_t}| and |n|, |C|)."""
+    (the inter-chunk sums over |q_t e^{m+F_t-m_t}| and |n|, |C|), and
+    the state update's weights ``kv_w`` (b, s, h) and ``w_carry`` (b, h)."""
     chunk = qb.shape[1]
     Fc = torch.cumsum(lf, dim=1)                           # (b,chunk,h)
     # intra-chunk log decay D[t, s] = F_t - F_s + li_s   (s <= t)
@@ -90,6 +91,8 @@ def _chunk_step(qb, kb, vb, li, lf, C, n, m, terms=None):
     C_new = C * w_carry[..., None, None] + torch.einsum(
         "bshk,bshv->bhkv", kb * kv_w[..., None], vb)
     n_new = n * w_carry[..., None] + torch.einsum("bshk,bsh->bhk", kb, kv_w)
+    if terms is not None:
+        terms.update(kv_w=kv_w, w_carry=w_carry)
     return out, (C_new, n_new, m_new)
 
 

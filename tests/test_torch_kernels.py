@@ -560,3 +560,280 @@ class TestMlstmPlain:
             r = got[name]
             assert r["kernel_vs_f64"] == r["plain_vs_f64"] < 5e-4
             assert r["out_of_criterion"] == 0
+
+
+# The chunk-parallel mLSTM kernel's arithmetic (csrc/mlstm_scan.cu): tiles
+# of 64 rows / keys, K steps of 32, k8 tensor-core steps
+MK, MSTEP = 64, 32
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as the kernel rounds it (cvt.rna's rule, on the bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _round_to_zero(x64):
+    """f64 -> f32 rounded toward zero (the tensor cores' f32 sums)."""
+    x = x64.float()
+    over = x.double().abs() > x64.abs()
+    return torch.where(over, torch.nextafter(x, torch.zeros_like(x)), x)
+
+
+def _mma3(a, b, one_sum=False):
+    """a (M, K) @ b (K, N) in f32 as the kernel's 3xTF32 products compute
+    it: hi = tf32(x), lo = tf32(x - hi); per k8 step one tensor-core sum
+    (the step's products exact, the sum rounded toward zero); hi.hi summed
+    per K step of 32 from zero and added to the running sum rounded to
+    nearest, the cross terms hi.lo and lo.hi in their own running sum.
+    ``one_sum``: every term in one running tensor-core sum instead."""
+    pad = -a.shape[1] % MSTEP
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    ah, al, bh, bl = (t.double() for t in (ah, al, bh, bl))
+    big = torch.zeros(a.shape[0], b.shape[1])
+    small = torch.zeros_like(big)
+    for k0 in range(0, a.shape[1], MSTEP):
+        part = big if one_sum else torch.zeros_like(big)
+        for k in range(k0, k0 + MSTEP, 8):
+            sl = slice(k, k + 8)
+            if one_sum:
+                part = _round_to_zero(part.double() + al[:, sl] @ bh[sl])
+                part = _round_to_zero(part.double() + ah[:, sl] @ bl[sl])
+            else:
+                small = _round_to_zero(small.double() + al[:, sl] @ bh[sl])
+                small = _round_to_zero(small.double() + ah[:, sl] @ bl[sl])
+            part = _round_to_zero(part.double() + ah[:, sl] @ bh[sl])
+        big = part if one_sum else big + part
+    return big + small
+
+
+def _mlstm_tensor_core_emulation(q, k, v, log_i, log_f, *, chunk,
+                                 initial_state=None, terms=None,
+                                 tensor_cores=("scores", "out", "state")):
+    """Test-only emulation of the CUDA kernel's order of operations, on CPU
+    tensors (f32): per chunk and head independently, F summed in f64
+    (exact) and kept in f64 for every gate weight's argument, each weight
+    rounded once; the row maxima of D from a prefix argmax of li_s - F_s;
+    the m carry over chunks in f32; each chunk's own state contribution
+    dC = (k kv_w)^T V (3xTF32) and dn, then the combine C_{c+1} = C_c
+    w_carry + dC_c in chunk order (one chunk: C0 w_carry + dC directly);
+    W = (Q K^T) (3xTF32) times the weights, its row sums by key tile of 64
+    summed in order; y = [W | q interw] [V ; C_c] (3xTF32, one product
+    over K = L + dk, the C half skipped where C_c is zero) over max(|row
+    sum + (q interw) . n_c|, e^{-m_t}).  Returns (y (B,S,H,dv) f32,
+    (C, n, m)); with ``terms`` (a dict) also the row maxima m_t (B,S,H).
+    ``tensor_cores`` names the products emulated in 3xTF32; the others
+    are f32 products (CUDA cores)."""
+
+    def product(name, a, b):
+        return _mma3(a, b) if name in tensor_cores else a @ b
+
+    b_, s_, h_, dk = q.shape
+    dv = v.shape[-1]
+    nc = -(-s_ // chunk)
+    q, k, v, li, lf = (t.float() for t in (q, k, v, log_i, log_f))
+    y = torch.zeros(b_, s_, h_, dv)
+    C_out = torch.zeros(b_, h_, dk, dv)
+    n_out, m_out = torch.zeros(b_, h_, dk), torch.zeros(b_, h_)
+    mts = torch.zeros(b_, s_, h_)
+    for b in range(b_):
+        for h in range(h_):
+            # pass 1, every chunk on its own
+            st = []
+            for c in range(nc):
+                t0 = c * chunk
+                L = min(chunk, s_ - t0)
+                F = torch.cumsum(lf[b, t0:t0 + L, h].double(), 0)
+                li64 = li[b, t0:t0 + L, h].double()
+                val, best, dmax = li64 - F, 0, torch.zeros(L)
+                for t in range(L):
+                    if val[t] > val[best]:
+                        best = t
+                    dmax[t] = ((F[t] - F[best]) + li64[best]).float()
+                g = ((F[-1] - F) + li64).float().max()
+                st.append((t0, L, F, li64, dmax, g))
+            m0 = (torch.tensor(NEG_INF, dtype=torch.float32)
+                  if initial_state is None else initial_state[2][b, h])
+            ms = [m0]
+            for (_, _, F, _, _, g) in st:                     # the m carry
+                ms.append(torch.maximum(ms[-1] + F[-1].float(), g))
+            # pass 2: each chunk's state contribution
+            dCs, dns, wcs = [], [], []
+            for c, (t0, L, F, li64, _, _) in enumerate(st):
+                m, m_next = ms[c].double(), ms[c + 1].double()
+                wcs.append(torch.exp((m + F[-1]) - m_next).float())
+                kw = torch.exp(((F[-1] - F) + li64) - m_next).float()
+                Kw = k[b, t0:t0 + L, h] * kw[:, None]
+                dCs.append(product("state", Kw.T.contiguous(),
+                                   v[b, t0:t0 + L, h]))
+                dns.append(Kw.sum(0))
+            # pass 3: the combine (chunk-start states)
+            if initial_state is None:
+                C, n = torch.zeros(dk, dv), torch.zeros(dk)
+            else:
+                C, n = initial_state[0][b, h], initial_state[1][b, h]
+            starts = []
+            for c in range(nc):
+                starts.append((C, n))
+                C = C * wcs[c] + dCs[c]
+                n = n * wcs[c] + dns[c]
+            C_out[b, h], n_out[b, h], m_out[b, h] = C, n, ms[-1]
+            # pass 4: scores and output, every chunk on its own
+            for c, (t0, L, F, li64, dmax, _) in enumerate(st):
+                inter = ms[c].double() + F
+                mt = torch.maximum(dmax, inter.float())
+                iw = torch.exp(inter - mt.double()).float()
+                mts[b, t0:t0 + L, h] = mt
+                D = (F[:, None] - F[None, :]) + li64[None, :]
+                w = torch.exp(D - mt.double()[:, None]).float()
+                w = torch.where(torch.ones(L, L, dtype=torch.bool).tril(),
+                                w, 0.0)
+                W = product("scores", q[b, t0:t0 + L, h],
+                            k[b, t0:t0 + L, h].T) * w
+                rowsum = sum(W[:, s0:s0 + MK].sum(1)
+                             for s0 in range(0, L, MK))
+                qi = q[b, t0:t0 + L, h] * iw[:, None]
+                Cc, nc_ = starts[c]
+                A = torch.nn.functional.pad(W, (0, -L % MSTEP))
+                Bm = torch.nn.functional.pad(v[b, t0:t0 + L, h],
+                                             (0, 0, 0, -L % MSTEP))
+                if c > 0 or initial_state is not None:
+                    A, Bm = torch.cat([A, qi], 1), torch.cat([Bm, Cc], 0)
+                    qn = (qi * nc_).sum(1)
+                else:
+                    qn = torch.zeros(L)
+                den = torch.maximum((rowsum + qn).abs(), torch.exp(-mt))
+                y[b, t0:t0 + L, h] = product("out", A, Bm) / den[:, None]
+    if terms is not None:
+        terms["m_t"] = mts
+    return y, (C_out, n_out, m_out)
+
+
+MLSTM_TC_CASES = [
+    dict(b=1, s=100, h=2, dk=32, dv=64, chunk=32, init=False),  # ragged, nc 4
+    dict(b=2, s=64, h=2, dk=32, dv=64, chunk=16, init=False),   # nc 4, B 2
+    dict(b=1, s=70, h=2, dk=32, dv=64, chunk=32, init=True),    # carried, nc 3
+    dict(b=1, s=128, h=2, dk=64, dv=128, chunk=128, init=False),  # one chunk
+]
+
+
+def _mlstm_tc_inputs(seed, c):
+    return _mlstm_case(np.random.default_rng(seed), "f32", c["b"], c["s"],
+                       c["h"], c["dk"], c["dv"], initial_state=c["init"])
+
+
+def _mlstm_worst_row_c(seed, case, tensor_cores=("scores", "out", "state")):
+    """The emulation on one draw held to ``chip_smoke.py``'s criterion
+    (every element of y, C, n and m; asserted) and y's mean error against
+    the plain version (asserted below 1e-5); returns c = |y - y_f64| /
+    (eps32 kappa |y_f64|) at y's element furthest from f64, as the probe
+    reads its worst row."""
+    from repro_torch.kernels.mlstm_scan import probe
+    _, targs, _, tstate = _mlstm_tc_inputs(seed, case)
+    kw = dict(chunk=case["chunk"], initial_state=tstate)
+    y, state = _mlstm_tensor_core_emulation(*targs, **kw,
+                                            tensor_cores=tensor_cores)
+    py, pstate = mlstm_chunked_ref(*targs, **kw)
+    rterms = []
+    ry, rstate = mlstm_chunked_ref(*targs, **kw, dtype=torch.float64,
+                                   terms=rterms)
+    scales = probe.abs_sums(targs, case["chunk"], tstate, rterms)
+    for name, got, plain, exact in zip(("y", "C", "n", "m"), (y, *state),
+                                       (py, *pstate), (ry, *rstate)):
+        arms = probe.criterion(got, plain, exact, scales.get(name), 5e-4)
+        assert arms["out"] == 0, (name, case, seed)
+    assert float((y - py).abs().mean()) < 1e-5
+    err = (y.double() - ry).abs()
+    worst = err.argmax()
+    return float(err.flatten()[worst]
+                 / (probe.EPS32 * scales["y"].flatten()[worst]))
+
+
+class TestMlstmTensorCoreArithmetic:
+    """The arithmetic of the CUDA mLSTM kernel, emulated on the CPU, against
+    the reference's Pallas kernel in interpret mode and its jnp oracle at
+    tests/test_kernels.py's tolerances (atol 5e-4, rtol 1e-5, mean below
+    1e-5), and against an f64 evaluation of the same algorithm by
+    ``chip_smoke.py``'s per-element criterion (the plain version's
+    tolerance, or c eps32 kappa |x_f64| with c = 2), seeds 0-15."""
+
+    @pytest.mark.parametrize("case", MLSTM_TC_CASES,
+                             ids=lambda c: "-".join(f"{k}{v}" for k, v in
+                                                    c.items()))
+    def test_matches_pallas_kernel_and_oracle(self, case):
+        jargs, targs, jstate, tstate = _mlstm_tc_inputs(0, case)
+        y, state = _mlstm_tensor_core_emulation(
+            *targs, chunk=case["chunk"], initial_state=tstate)
+        ref_y, ref_state = mlstm_ref(*jargs, initial_state=jstate)
+        _mlstm_close(ref_y, y, "f32")
+        _state_close(ref_state, state)
+        if not case["init"]:   # the Pallas kernel starts from the empty state
+            _mlstm_close(mlstm_scan_kernel(*jargs, chunk=case["chunk"],
+                                           interpret=True), y, "f32")
+
+    @pytest.mark.parametrize("seed", range(16))
+    def test_within_the_kappa_bound_of_f64(self, seed):
+        for case in (MLSTM_TC_CASES[0], MLSTM_TC_CASES[2]):
+            assert _mlstm_worst_row_c(seed, case) <= 2.0
+
+    @pytest.mark.parametrize("product", ["scores", "out", "state"])
+    def test_each_product_on_tensor_cores_within_the_bound(self, product):
+        """The kernel's route for each product: 3xTF32 alone on that
+        product (the others f32) keeps the worst row of y within c = 2 of
+        the kappa bound over seeds 0-15, and every element within the
+        criterion."""
+        case = MLSTM_TC_CASES[0]
+        for seed in range(16):
+            assert _mlstm_worst_row_c(seed, case, (product,)) <= 2.0
+
+    def test_tf32_split(self):
+        """hi keeps 10 mantissa bits, rounded to nearest with ties away
+        from zero; hi + lo carries x to 2^-22 relative."""
+        x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            4096).astype(np.float32)) * 10.0
+        hi = _tf32(x)
+        lo = _tf32(x - hi)
+        assert torch.all((hi.view(torch.int32) & 0x1FFF) == 0)
+        assert torch.all((x - hi).abs() <= x.abs() * 2.0 ** -11)
+        assert torch.all((x.double() - hi.double() - lo.double()).abs()
+                         <= x.double().abs() * 2.0 ** -22)
+        tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+        assert _tf32(tie).tolist() == [1.0 + 2.0 ** -10,
+                                       -(1.0 + 2.0 ** -10)]
+
+    def test_prefix_argmax_stabiliser_is_the_row_max(self):
+        """m_t from the prefix argmax of li_s - F_s is the plain version's
+        max_s D[t,s] (both f32 on F summed exactly) to an f32 rounding."""
+        case = MLSTM_TC_CASES[0]
+        _, targs, _, _ = _mlstm_tc_inputs(3, case)
+        got, want = {}, []
+        _mlstm_tensor_core_emulation(*targs, chunk=case["chunk"], terms=got)
+        mlstm_chunked_ref(*targs, chunk=case["chunk"], terms=want)
+        m_t = torch.cat([t["m_t"] for t in want], 1)[:, :case["s"]]
+        np.testing.assert_allclose(got["m_t"].numpy(), m_t.numpy(),
+                                   rtol=0, atol=4e-6)
+
+    def test_accumulation_per_k_step(self):
+        """At K 512, hi.hi summed per K step of 32 and the cross terms
+        apart sit nearer f64 than f32 fmas in one running sum, and at
+        least 3x nearer than one running tensor-core sum of all terms."""
+        rng = np.random.default_rng(6)
+        a = torch.from_numpy(rng.standard_normal((64, 512)).astype(
+            np.float32))
+        b = torch.from_numpy(rng.standard_normal((512, 32)).astype(
+            np.float32))
+        exact = a.double() @ b.double()
+        fma = torch.zeros(64, 32)
+        for i in range(512):
+            fma = (fma.double() + a[:, i:i + 1].double()
+                   @ b[i:i + 1].double()).float()
+
+        def err(x):
+            return float((x.double() - exact).abs().mean())
+
+        assert err(_mma3(a, b)) < err(fma)
+        assert 3 * err(_mma3(a, b)) < err(_mma3(a, b, one_sum=True))
