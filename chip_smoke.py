@@ -10,7 +10,7 @@ worker policies, runs full-width olmo-1b's quantized KV restore under
 decode (bridge_opt on; restore codecs "", fp8 and int8, each restored block
 widened by the dequant kernel), checks that each path went through its
 kernels (launch counters: flash + paged for olmo-1b, the chunked mLSTM scan
-for xlstm-1.3b, dequant once per quantized block restored) and that its
+for xlstm-1.3b, dequant once per quantized restore) and that its
 crossing tapes obey the bridge law, profiles a decode step of each model,
 and times each kernel, its plain version and the PyTorch call computing the
 same function, where there is one (device time by the profiler; the flash
@@ -18,7 +18,8 @@ kernel at each of the main path's prompt lengths and at 4096; the paged
 kernel at the main path's decode lengths, with every slot full, and at a
 profiled decode step's lengths back to back, after idle and after a
 GEMM; the mLSTM kernel at the longest prompt and summed over one main
-path run's prefills).  It prints
+path run's prefills; the dequant kernel at a restore's shape, one list
+call against 32 single calls).  It prints
 the card's name and power limit, one ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the repository's ``src`` beside it, it exits non-zero and prints
@@ -30,6 +31,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -380,18 +382,47 @@ def _bit_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
                             want[~nan].view(torch.int32)))
 
 
+#: the list calls phase_dequant makes, by label: values per segment (the
+#: restore's 32 full-width olmo-1b KV blocks; 64 and 65 segments, the
+#: last crossing the launch split; ragged segments)
+DEQUANT_LISTS = {
+    "2": [300 * 128, 77],
+    "32": [8192 * 128] * 32,
+    "64": [(128, 127 * 128, 300 * 128, 77)[i % 4] for i in range(64)],
+    "65": [(128, 127 * 128, 300 * 128, 77)[i % 4] for i in range(65)],
+    "ragged": [77, 1, 129, 16 * 128 + 15],
+}
+
+
+def _every_code(gen, n: int, half: int) -> torch.Tensor:
+    """``n`` seeded codes beginning with every one of the 256 codes (the
+    first or second half of them when ``n`` is under 256)."""
+    codes = torch.randint(0, 256, (n,), generator=gen, device=DEVICE,
+                          dtype=torch.int32).to(torch.uint8)
+    every = torch.arange(256, device=DEVICE, dtype=torch.int32).to(
+        torch.uint8)
+    if n < 256:
+        every = every[128:] if half else every[:128]
+    m = min(n, every.numel())
+    codes[:m] = every[:m]
+    return codes
+
+
 def phase_dequant(gen) -> float:
     """The dequant kernel against its plain version on the card, bit for
     bit: int8 and fp8, 1, 127, 8,192 (one full-width olmo-1b KV block) and
-    8,193 blocks, every one of the 256 codes present, NaN compared as NaN.
-    Then the torch encode on the card against the same encode on the CPU,
-    on a seeded full-width KV block.  Returns the worst max-abs error over
-    the finite values (0 when bit-equal)."""
+    8,193 blocks, every one of the 256 codes present, NaN compared as NaN;
+    then the list calls of DEQUANT_LISTS (their own generator), each with
+    its launch count ceil(n / 64) and its segments at their offsets in one
+    buffer.  Then the torch encode on the card against the same encode on
+    the CPU, on a seeded full-width KV block.  Returns the worst max-abs
+    error over the finite values (0 when bit-equal)."""
     from repro_torch.kernels.dequant import ops
-    from repro_torch.kernels.dequant.ref import dequant_ref
+    from repro_torch.kernels.dequant.ref import dequant_many_ref, dequant_ref
     from repro_torch.quant import get_codec
     worst = 0.0
     every = torch.arange(256, device=DEVICE, dtype=torch.int32).to(torch.uint8)
+    lgen = torch.Generator(device=DEVICE).manual_seed(18)
     for codec in ("int8", "fp8"):
         for nblocks in (1, 127, 8192, 8193):
             codes = torch.randint(0, 256, (nblocks * 128,), generator=gen,
@@ -412,6 +443,36 @@ def phase_dequant(gen) -> float:
             check(_bit_equal(out, plain), f"dequant kernel ({codec}, "
                   f"{nblocks} blocks) differs from its plain version")
             worst = max(worst, err)
+        for label, values in DEQUANT_LISTS.items():
+            codes = [_every_code(lgen, v, i % 2)
+                     for i, v in enumerate(values)]
+            scales = [torch.randn(-(-v // 128), generator=lgen,
+                                  device=DEVICE) * 4 for v in values]
+            before = ops.dequant.launches
+            outs = ops.dequant_many(codes, scales, codec=codec)
+            torch.cuda.synchronize()
+            launched = ops.dequant.launches - before
+            plain = dequant_many_ref(codes, scales, codec=codec)
+            equal = all(_bit_equal(o, p) for o, p in zip(outs, plain))
+            offsets = ops.block_offsets(values)
+            placed = all(o.data_ptr() == outs[0].data_ptr() + 512 * b
+                         for o, b in zip(outs, offsets))
+            err = max(torch.where(torch.isfinite(p), o - p, 0).abs().max()
+                      .item() for o, p in zip(outs, plain))
+            ragged = sum(v % 128 != 0 for v in values)
+            print(f"dequant {codec} list of {len(values)} segments "
+                  f"({offsets[-1]} blocks, {ragged} ragged): bit-equal "
+                  f"{equal}, max_abs_err {err:.3g}, launches {launched}, "
+                  f"views at their offsets in one buffer {placed}")
+            check(equal, f"dequant list call ({codec}, {label}) differs "
+                         f"from its plain version")
+            check(launched == -(-len(values) // ops.MAX_SEGMENTS),
+                  f"dequant list call ({codec}, {label}): {launched} "
+                  f"launches")
+            check(placed, f"dequant list call ({codec}, {label}): segments "
+                          f"not at their offsets of one buffer")
+            worst = max(worst, err)
+            del codes, scales, outs, plain
         x = torch.randn((2, 16, 16, 16, 128), generator=gen, device=DEVICE)
         x = (x * 3).to(torch.bfloat16)
         card, host = get_codec(codec).encode(x), get_codec(codec).encode(
@@ -783,9 +844,12 @@ def _restore_run(model, kv_quant: str, blocks: list, shared: list,
             stats = engine.run()
             torch.cuda.synchronize()
             run_wall = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in counters.items()}
+        timed = dict(mgr.restored)
+        breakdown = _restore_breakdown(mgr, hashes)
+        mgr.restored = timed
     finally:
         engine.close()
-    counts = {name: fn.launches for name, fn in counters.items()}
     tape = recorder.tape()
     restore = [r for r in tape.records if r.kind == "crossing"
                and r.op_class in (oc.KV_RESTORE_H2D, oc.KV_RESTORE_PIPELINED,
@@ -800,8 +864,59 @@ def _restore_run(model, kv_quant: str, blocks: list, shared: list,
         restore_raw=sum(r.raw_bytes or r.nbytes for r in restore),
         dequant_s=sum(r.t_end - r.t_start for r in tape.records
                       if r.op_class == oc.DEQUANT_COMPUTE),
-        restore_wall=restore_wall, run_wall=run_wall,
+        restore_wall=restore_wall, run_wall=run_wall, breakdown=breakdown,
         decode_tokens=stats["total_tokens"] - before)
+
+
+def _restore_breakdown(mgr, hashes: list) -> str:
+    """One more restore of ``hashes`` (after the timed one, off the tape,
+    unkeyed) under the profiler: device time of the host-to-device copies,
+    of the dequant kernel and of every other kernel, and the host clock of
+    the upload (the restore's start to the widen step, the copies synced)
+    and of the widen step (synced).  Measures only: the manager's widen
+    step is wrapped for this one call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    marks = {}
+    widen = mgr._widen
+
+    def timed_widen(hits, arrived):
+        torch.cuda.synchronize()
+        marks["upload"] = time.perf_counter()
+        out = widen(hits, arrived)
+        torch.cuda.synchronize()
+        marks["widen"] = time.perf_counter()
+        return out
+
+    mgr._widen = timed_widen
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mgr.restore(hashes)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    finally:
+        del mgr._widen
+    parts = {"h2d": [0.0, 0], "dequant": [0.0, 0], "other": [0.0, 0]}
+    other = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        part = ("h2d" if "HtoD" in e.key else
+                "dequant" if "dequant" in e.key else "other")
+        parts[part][0] += us
+        parts[part][1] += e.count
+        if part == "other":
+            other.append(f"{e.key[:40]} x{e.count}")
+    host = (f"host upload {(marks['upload'] - t0) * 1e3:.4f} ms, widen "
+            f"{(marks['widen'] - marks['upload']) * 1e3:.4f} ms, rest "
+            f"{(t1 - marks['widen']) * 1e3:.4f} ms of {(t1 - t0) * 1e3:.4f}")
+    device = "; ".join(f"{k} {us / 1e3:.5f} ms device ({n} events)"
+                       for k, (us, n) in parts.items())
+    return f"{device} [{', '.join(other) or 'none'}]; {host}"
 
 
 def _check_restored(kv_quant: str, mgr, blocks: list) -> str:
@@ -853,8 +968,9 @@ def phase_restore(model) -> int:
     restored pipelined for ``r0`` while three short requests decode (the
     reference's bench_quant shape at full width, with real payloads).
     Checks tokens across codecs, restore bytes, the tapes (law Q
-    included), the launch counts and every restored block.  Returns the
-    dequant launches of the two quantized runs."""
+    included), the launch counts (one dequant launch per quantized
+    restore) and every restored block, and prints each codec's restore
+    breakdown.  Returns the dequant launches of the two quantized runs."""
     cfg = model.cfg
     gen = torch.Generator().manual_seed(3)
     shared = torch.randint(1, cfg.vocab_size, (RESTORE["prompt_len"],),
@@ -882,7 +998,7 @@ def phase_restore(model) -> int:
               f"{stats['finished']} of {n_req} requests finished")
         want = {"flash_attention": n_req * cfg.n_layers,
                 "paged_attention": stats["steps"] * cfg.n_layers,
-                "mlstm_scan": 0, "dequant": len(blocks) if q else 0}
+                "mlstm_scan": 0, "dequant": 1 if q else 0}
         check(counts == want, f"restore {name}: kernel launches {counts}, "
                               f"expected {want}")
         checked = _check_restored(q, run["mgr"], blocks)
@@ -904,6 +1020,8 @@ def phase_restore(model) -> int:
               f"run wall {run['run_wall']:.4f} s, decode "
               f"{run['decode_tokens']} tokens = "
               f"{run['decode_tokens'] / run['run_wall']:.1f} decode tok/s")
+        print(f"  restore breakdown (one more restore, profiled): "
+              f"{run['breakdown']}")
     base = runs[""]
     for q in ("fp8", "int8"):
         check(runs[q]["tokens"] == base["tokens"],
@@ -1235,83 +1353,194 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
 
     rows.append(_time_mlstm(gen, launches, errs))
 
-    # dequant at one restored block's shape: a full-width olmo-1b KV block
-    # of 1,048,576 values is 8,192 quant blocks; 64 sets cycled so each
-    # launch reads its codes from device memory (66 MB of codes and scales
-    # > the 50 MB L2; the 4 MiB output is one buffer the allocator hands
-    # back each call); no single PyTorch call
-    # computes this function, so the two-op expression the plain version
-    # is written as is timed beside it, labelled as such.  A call this
-    # short is bound by its host-side dispatch when calls run back to back
-    # (CUDA events then time the dispatch), so the profiler's device time
-    # per call is taken too
+    rows.append(_time_dequant(gen, launches, errs))
+    return rows
+
+
+#: the restore's shape: 32 full-width olmo-1b KV blocks of 8,192 quant
+#: blocks each, widened by one list call
+RESTORE_SEGMENTS, RESTORE_BLOCKS = 32, 8192
+
+
+def _time_dequant(gen, launches: dict, errs: dict) -> dict:
+    """The dequant kernel at the restore's shape (the row's numbers): one
+    list call over 32 segments of 8,192 x 128 codes against the same 32
+    segments as 32 single-segment calls (the path before the list call)
+    and the plain version, device time in turns, two rounds (the median
+    of four windows each; every window printed).  L2-cold: each call reads
+    an 80 MiB buffer first (a reduction, left out of the times), which
+    evicts the codes a streaming-store kernel leaves in L2 and writes back
+    the last call's output, and the codes rotate over 3 sets (33.8 MB of
+    codes and scales each).  Beside it the widen step as the restore runs
+    it (split_wire, then decode_many; or per block split_wire and decode),
+    event time, host and device together, back to back.  Then one block's
+    shape (8,192 x 128, 64 rotating sets, the same flush).  fp8 is the
+    row's codec; int8 rides beside it.  No single PyTorch call computes
+    this function, so the two-op expression the plain version is written
+    as is timed beside the single block (events), labelled as such."""
+    import dataclasses
     from repro_torch.kernels.dequant import ops as dq
-    from repro_torch.kernels.dequant.ref import CODE_DTYPES, dequant_ref
-    nblocks, sets = 8192, 64
+    from repro_torch.kernels.dequant.ref import (CODE_DTYPES, dequant_many_ref,
+                                                 dequant_ref)
+    from repro_torch.quant import QuantizedBlock, get_codec, split_wire
+    nseg, nblocks, rsets = RESTORE_SEGMENTS, RESTORE_BLOCKS, 3
+    values = nblocks * 128
+    rcodes = torch.randint(0, 256, (rsets, nseg, values), generator=gen,
+                           device=DEVICE, dtype=torch.int32).to(torch.uint8)
+    rscales = torch.rand((rsets, nseg, nblocks), generator=gen, device=DEVICE)
+    lists = [([rcodes[k, i] for i in range(nseg)],
+              [rscales[k, i] for i in range(nseg)]) for k in range(rsets)]
+    wires = [[torch.cat([c, s.view(torch.uint8)]) for c, s in zip(*lists[k])]
+             for k in range(rsets)]
+    r_bytes = nseg * (values * (1 + 4) + nblocks * 4)
+    r_bms, r_by = bound(nseg * values, r_bytes, PEAK_F32_FLOPS)
+    flush = torch.ones(80 << 18, device=DEVICE)
+    turn = [0]
+
+    def rotate(fn, sets, cold=True):
+        def call():
+            i = turn[0] = (turn[0] + 1) % sets
+            if cold:
+                flush.sum()
+            return fn(i)
+        return call
+
+    def windows(w: dict) -> str:
+        return "; ".join(f"{name} " + " ".join(f"{ms:.5f}" for ms in v)
+                         for name, v in w.items())
+
+    per_codec = {}
+    for codec in ("fp8", "int8"):
+        qb = QuantizedBlock(codec=codec, raw_bytes=2 * values,
+                            wire_bytes=values + 4 * nblocks,
+                            codes=rcodes[0, 0], scales=rscales[0, 0],
+                            shape=(values,), dtype="bfloat16")
+        dec = get_codec(codec)
+
+        def blocks(k):
+            out = []
+            for w in wires[k]:
+                c, s = split_wire(w, values)
+                out.append(dataclasses.replace(qb, codes=c, scales=s))
+            return out
+
+        fns = {
+            "list call": rotate(lambda k: dq.dequant_many(
+                *lists[k], codec=codec), rsets),
+            "32 calls": rotate(lambda k: [
+                dq.dequant(c.view(nblocks, 128), s, codec=codec)
+                for c, s in zip(*lists[k])], rsets),
+            "plain": rotate(lambda k: dequant_many_ref(
+                *lists[k], codec=codec), rsets),
+        }
+        seen = {}
+        dev = _in_turns(fns, f"dequant {codec} restore shape", rounds=2,
+                        skip="reduce_kernel", windows=seen)
+        for name in fns:
+            _measured(dev[name], f"dequant {codec} {name} at the restore "
+                                 f"shape")
+        widen_many = time_ms(rotate(lambda k: dec.decode_many(blocks(k)),
+                                    rsets, cold=False), iters=30)
+        widen_each = time_ms(rotate(lambda k: [dec.decode(b) for b in
+                                               blocks(k)], rsets,
+                                    cold=False), iters=30)
+        per_codec[codec] = dict(
+            ms=dev["list call"], calls32_ms=dev["32 calls"],
+            plain_ms=dev["plain"], windows_ms=seen,
+            widen_events_ms=widen_many,
+            widen_per_block_events_ms=widen_each)
+        print(f"timing dequant {codec} at the restore shape ({nseg} segments "
+              f"x {nblocks} x 128 codes, L2-cold): list call "
+              f"{dev['list call']:.5f} ms device (1 launch), 32 calls "
+              f"{dev['32 calls']:.5f} ms (32 launches), plain "
+              f"{dev['plain']:.5f} ms; bound {r_bms:.5f} ms ({r_by}; "
+              f"{r_bytes} bytes): list call {r_bms / dev['list call']:.4f} "
+              f"of the bound, {dev['list call'] / dev['32 calls']:.4f}x the "
+              f"32 calls (windows: {windows(seen)}); widen step "
+              f"(split_wire + decode, events, host and device) "
+              f"{widen_many:.5f} ms with decode_many, {widen_each:.5f} ms "
+              f"block by block")
+    del rcodes, rscales, lists, wires
+
+    # one restored block's shape: 8,192 quant blocks, 64 sets cycled (66 MB
+    # of codes and scales) after the same flush.  A call this short is
+    # bound by its host-side dispatch when calls run back to back (CUDA
+    # events then time the dispatch), so the profiler's device time per
+    # call is the number
+    sets = 64
     codes = torch.randint(0, 256, (sets, nblocks, 128), generator=gen,
                           device=DEVICE, dtype=torch.int32).to(torch.uint8)
     scales = torch.rand((sets, nblocks), generator=gen, device=DEVICE)
     scales2d = scales[:, :, None].contiguous()
     nbytes = nblocks * 128 * (1 + 4) + nblocks * 4
     bms, by = bound(nblocks * 128, nbytes, PEAK_F32_FLOPS)
-    per_codec, turn = {}, [0]
-
-    def rotate(fn):
-        def call():
-            i = turn[0] = (turn[0] + 1) % sets
-            return fn(i)
-        return call
-
     for codec in ("fp8", "int8"):
         ms = time_ms(rotate(lambda i: dq.dequant(codes[i], scales[i],
-                                                 codec=codec)), iters=160)
+                                                 codec=codec), sets,
+                            cold=False), iters=160)
         plain = time_ms(rotate(lambda i: dequant_ref(
-            codes[i], scales2d[i], codec=codec)), iters=160)
+            codes[i], scales2d[i], codec=codec), sets, cold=False),
+            iters=160)
         expr = time_ms(rotate(lambda i: codes[i].view(
-            CODE_DTYPES[codec]).float() * scales2d[i]), iters=160)
-        device = _measured(_kernel_breakdown(rotate(lambda i: dq.dequant(
-            codes[i], scales[i], codec=codec)), f"dequant {codec} kernel"),
-            f"the dequant kernel ({codec})")
-        plain_device = _measured(_kernel_breakdown(rotate(
-            lambda i: dequant_ref(codes[i], scales2d[i], codec=codec)),
-            f"dequant {codec} plain"), f"dequant's plain version ({codec})")
-        per_codec[codec] = dict(ms=ms, plain_ms=plain, torch_expr_ms=expr,
-                                device_ms=device,
-                                plain_device_ms=plain_device)
+            CODE_DTYPES[codec]).float() * scales2d[i], sets, cold=False),
+            iters=160)
+        seen = {}
+        dev = _in_turns({
+            "kernel": rotate(lambda i: dq.dequant(codes[i], scales[i],
+                                                  codec=codec), sets),
+            "plain": rotate(lambda i: dequant_ref(codes[i], scales2d[i],
+                                                  codec=codec), sets)},
+            f"dequant {codec} one block", rounds=2, skip="reduce_kernel",
+            windows=seen)
+        device = _measured(dev["kernel"], f"the dequant kernel ({codec})")
+        plain_device = _measured(dev["plain"],
+                                 f"dequant's plain version ({codec})")
+        per_codec[codec]["single_block"] = dict(
+            ms=device, plain_ms=plain_device, bound_ms=bms, events_ms=ms,
+            plain_events_ms=plain, torch_expr_events_ms=expr,
+            windows_ms=seen)
         print(f"timing dequant {codec} ({nblocks} x 128 codes, one restored "
-              f"block): kernel {ms:.5f} ms (device {device} ms), plain "
-              f"{plain:.5f} ms (device {plain_device} ms), two-op torch "
-              f"expression codes.view({CODE_DTYPES[codec]}).float() * scales "
-              f"{expr:.5f} ms, bound {bms:.5f} ms ({by}; {nbytes} bytes)")
-    # the row's ms and plain_ms are device time per call (the profiler's);
-    # the event times ride beside them
+              f"block, L2-cold): kernel {device:.5f} ms device ({ms:.5f} ms "
+              f"events), plain {plain_device:.5f} ms device ({plain:.5f} ms "
+              f"events), two-op torch expression codes.view("
+              f"{CODE_DTYPES[codec]}).float() * scales {expr:.5f} ms events, "
+              f"bound {bms:.5f} ms ({by}; {nbytes} bytes): "
+              f"{bms / device:.4f} of the bound (windows: {windows(seen)})")
+    # the row's ms, plain_ms and bound are the restore shape's (device
+    # time per call, the profiler's); event times ride beside them
     fp8 = per_codec["fp8"]
-    rows.append(dict(
+    return dict(
         name="dequant", route="cuda",
         source="src/repro_torch/kernels/dequant/csrc/dequant.cu",
         replaces="src/repro/kernels/dequant/dequant.py:50",
         launches=launches["dequant"], max_abs_err=errs["dequant"],
-        ms=fp8["device_ms"], plain_ms=fp8["plain_device_ms"],
-        bound_ms=bms, bound_by=by, library_ms=None,
-        torch_expr_ms=fp8["torch_expr_ms"], events_ms=fp8["ms"],
-        plain_events_ms=fp8["plain_ms"], codec="fp8",
-        int8=per_codec["int8"]))
-    return rows
+        ms=fp8["ms"], plain_ms=fp8["plain_ms"], bound_ms=r_bms,
+        bound_by=r_by, library_ms=None, codec="fp8",
+        shape=f"{nseg} segments x {nblocks} x 128 codes, one list call",
+        calls32_ms=fp8["calls32_ms"], windows_ms=fp8["windows_ms"],
+        widen_events_ms=fp8["widen_events_ms"],
+        widen_per_block_events_ms=fp8["widen_per_block_events_ms"],
+        single_block=fp8["single_block"], int8=per_codec["int8"])
 
 
-def _in_turns(fns: dict, label: str) -> dict:
+def _in_turns(fns: dict, label: str, rounds: int = 1, skip: str = "",
+              windows: dict = None) -> dict:
     """Device time per call of each of ``fns`` (by name), measured in turns
-    a, b, ..., ..., b, a so a drift of the card's clock falls on all alike;
-    the mean of each one's two windows (None where the profiler saw
-    nothing).  Each one's first window is printed."""
-    order = list(fns) + list(fns)[::-1]
+    a, b, ..., ..., b, a (``rounds`` times) so a drift of the card's clock
+    falls on all alike; the median of each one's windows (None where the
+    profiler saw nothing), kernels whose name holds ``skip`` left out.
+    Each one's first window is printed; ``windows`` collects them all."""
+    order = (list(fns) + list(fns)[::-1]) * rounds
     got = {name: [] for name in fns}
     for i, name in enumerate(order):
         ms = _kernel_breakdown(fns[name], f"{label} {name}",
-                               show=i < len(fns))
+                               show=i < len(fns), skip=skip)
         if ms is not None:
             got[name].append(ms)
-    return {name: sum(v) / len(v) if v else None for name, v in got.items()}
+    if windows is not None:
+        windows.update(got)
+    return {name: statistics.median(v) if v else None
+            for name, v in got.items()}
 
 
 def _measured(ms, what: str) -> float:
@@ -1338,12 +1567,12 @@ def _ratio(a, b) -> str:
 
 
 def _kernel_breakdown(fn, label: str, calls: int = 10, show: bool = True,
-                      only: str = ""):
+                      only: str = "", skip: str = ""):
     """Device time per call of each kernel ``fn`` launches (torch.profiler
     over ``calls`` calls, after calls that keep the card busy for at least
     20 ms), printed unless not ``show``; returns their sum in ms per call
-    (of the kernels whose name holds ``only``), or None where the profiler
-    saw no such device events in five windows.
+    (of the kernels whose name holds ``only`` and not ``skip``), or None
+    where the profiler saw no such device events in five windows.
 
     A window now and then comes back empty, or holding fewer launches of a
     kernel than were made (``count`` below calls x launches per call), so
@@ -1369,7 +1598,8 @@ def _kernel_breakdown(fn, label: str, calls: int = 10, show: bool = True,
                          getattr(e, "self_cuda_time_total", 0.0)), e.key,
                  e.count)
                 for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and only in e.key]
+                if e.device_type == DeviceType.CUDA and only in e.key
+                and not (skip and skip in e.key)]
         rows = [(us, key, n) for us, key, n in rows if us > 0 and n > 0]
         if rows and all(n % calls == 0 for _, _, n in rows):
             best, whole = rows, True

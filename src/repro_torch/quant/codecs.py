@@ -14,9 +14,10 @@ accuracy-budget gate (``select_codec``) are the reference's.  What differs:
   * a floating tensor, bf16 included, is encoded numerically.  The
     reference sees an ``ml_dtypes`` bf16 array as non-float and ships
     wire-sized zeros for it; the byte counts are the same either way;
-  * ``decode`` widens through the block-scale dequant kernel
-    (``kernels/dequant``): the hand-written CUDA kernel for a tensor on the
-    card, its plain version on the CPU;
+  * ``decode`` and ``decode_many`` widen through the block-scale dequant
+    kernel (``kernels/dequant``): the hand-written CUDA kernel for tensors
+    on the card, one launch for a whole list of blocks, its plain version
+    on the CPU;
   * a block's wire layout is real: the codes, then the scales' bytes
     (``QuantizedBlock.wire``), exactly ``wire_bytes`` long for an unclamped
     block.
@@ -156,21 +157,36 @@ class _BlockScaleCodec:
     def decode(self, qb: QuantizedBlock) -> torch.Tensor:
         """The f32 values of ``qb`` in its payload's shape, widened by the
         dequant kernel (one launch on the card)."""
-        from repro_torch.kernels.dequant.ops import dequant
-        if qb.opaque:
-            return torch.zeros(qb.shape, dtype=torch.uint8,
-                               device=qb.codes.device)
-        nblocks = max(1, qb.scales.numel())
-        codes = qb.codes.reshape(-1)
-        if codes.numel() != nblocks * BLOCK_VALUES:
-            padded = torch.zeros(nblocks * BLOCK_VALUES, dtype=torch.uint8,
-                                 device=codes.device)
-            padded[:codes.numel()] = codes
-            codes = padded
-        values = dequant(codes.reshape(nblocks, BLOCK_VALUES),
-                         qb.scales.reshape(nblocks), codec=self.name)
-        n = int(np.prod(qb.shape, dtype=np.int64))
-        return values.reshape(-1)[:n].reshape(qb.shape)
+        return self.decode_many([qb])[0]
+
+    def decode_many(self, qbs: list) -> list:
+        """The f32 values of each block in its payload's shape, every block
+        that holds codes widened by one ``dequant_many`` (one launch per 64
+        blocks on the card; the results are then views of one buffer).  An
+        opaque block decodes to zeros (uint8) as in the reference."""
+        from repro_torch.kernels.dequant.ops import dequant_many
+        for qb in qbs:
+            if qb.codec != self.name:
+                raise ValueError(f"decode_many: a {qb.codec!r} block given "
+                                 f"to the {self.name!r} codec")
+        out = [None] * len(qbs)
+        widen = []
+        for i, qb in enumerate(qbs):
+            if qb.opaque:
+                out[i] = torch.zeros(qb.shape, dtype=torch.uint8,
+                                     device=qb.codes.device)
+            elif qb.codes.numel() == 0:
+                out[i] = torch.zeros(qb.shape, dtype=torch.float32,
+                                     device=qb.codes.device)
+            else:
+                widen.append(i)
+        if widen:
+            values = dequant_many([qbs[i].codes.reshape(-1) for i in widen],
+                                  [qbs[i].scales.reshape(-1) for i in widen],
+                                  codec=self.name)
+            for i, v in zip(widen, values):
+                out[i] = v.reshape(qbs[i].shape)
+        return out
 
     def measured_error(self, probe=None) -> float:
         """Max per-block relative round-trip error on a seeded probe: max

@@ -19,9 +19,9 @@ and charge is the reference's; what moves is real:
     bytes (``QuantizedBlock.wire``) — cross to the host; unquantized, the
     payload crosses as its bytes.  The host store keeps what crossed;
   * a restore uploads those bytes (where the reference uploads wire-sized
-    zeros), widens each block that holds codes with the dequant kernel
-    (one launch per block) and keeps the restored tensor in ``restored``,
-    keyed by content hash, for the caller to read.  An unquantized block
+    zeros), widens every block that holds codes with the dequant kernel
+    (one launch for the whole restore) and keeps each restored tensor in
+    ``restored``, keyed by content hash, for the caller to read.  An unquantized block
     comes back as the spilled tensor, bit for bit;
   * metadata-only and opaque (integer) blocks cross as wire-sized zeros,
     as in the reference, and restore nothing; a block the clamp keeps at
@@ -146,7 +146,9 @@ class OffloadManager:
         #: restored tensors on the gateway's device, by content hash: f32 for
         #: a block that was widened, the spilled dtype for one that crossed
         #: as its own bytes.  Filled by ``restore``; the caller reads (and
-        #: may pop) them.
+        #: may pop) them.  On the card the widened tensors of one restore
+        #: are views of one f32 buffer, which lives until the last of them
+        #: is dropped.
         self.restored: dict[int, torch.Tensor] = {}
         #: virtual time the most recent restore fully lands — equals
         #: clock.now for blocking restores, the pipeline's completion for
@@ -257,20 +259,32 @@ class OffloadManager:
 
     # -- restore -------------------------------------------------------------------------
 
-    def _widen(self, block: HostBlock,
-               dev: torch.Tensor) -> Optional[torch.Tensor]:
-        """The restored tensor of one block from its uploaded bytes, or
-        None where the wire held no content (metadata-only, opaque)."""
-        if block.payload is None:
-            return None
-        qb = block.qblock
-        if qb is None or qb.clamped:
-            return dev.view(block.dtype).reshape(block.shape)
-        if qb.opaque:
-            return None
-        codes, scales = split_wire(dev, qb.codes.numel())
-        return get_codec(block.codec).decode(
-            dataclasses.replace(qb, codes=codes, scales=scales))
+    def _widen(self, hits: list, arrived: list) -> list:
+        """The restored tensor of each block from its uploaded bytes, or
+        None where the wire held no content (metadata-only, opaque).  A
+        block that crossed as its own bytes is viewed as the spilled
+        tensor; every block that holds codes is widened by one
+        ``decode_many`` (one dequant launch on the card)."""
+        out = [None] * len(hits)
+        coded = []
+        for i, (block, dev) in enumerate(zip(hits, arrived)):
+            qb = block.qblock
+            if block.payload is None:
+                continue
+            if qb is None or qb.clamped:
+                out[i] = dev.view(block.dtype).reshape(block.shape)
+                continue
+            if qb.opaque:
+                continue
+            codes, scales = split_wire(dev, qb.codes.numel())
+            coded.append((i, dataclasses.replace(qb, codes=codes,
+                                                 scales=scales)))
+        if coded:
+            widened = get_codec(coded[0][1].codec).decode_many(
+                [qb for _, qb in coded])
+            for (i, _), t in zip(coded, widened):
+                out[i] = t
+        return out
 
     def restore(self, token_hashes: list, *,
                 key: Optional[str] = None) -> tuple[int, int]:
@@ -328,8 +342,7 @@ class OffloadManager:
                     tags=(oc.QUANTIZED,) if quantized else (),
                     raw_bytes=raw_list, codec=codec)
                 done_t = self.gateway.clock.now
-            for block, dev in zip(hits, arrived):
-                restored = self._widen(block, dev)
+            for block, restored in zip(hits, self._widen(hits, arrived)):
                 if restored is not None:
                     self.restored[block.token_hash] = restored
             if quantized:
