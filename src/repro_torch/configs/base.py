@@ -203,10 +203,12 @@ ARCH_IDS = (
     "qwen3p6-27b",
 )
 
-#: the archs whose family this package can run: dense decoders with full
-#: attention and the xLSTM stack (the other families are still to port,
-#: ROADMAP.md Queue 1 item 7)
-PORTED_ARCH_IDS = ("olmo-1b", "qwen3p6-27b", "xlstm-1.3b")
+#: the archs whose model this package can run: dense decoders with full
+#: attention and the xLSTM stack.  Every arch's config loads (``get_config``)
+#: and prices (``core.compute``); ``Model`` refuses the others' families
+#: (``models.transformer.check_supported``; ROADMAP.md, Queue 1 item 4)
+PORTED_ARCH_IDS = ("olmo-1b", "qwen1.5-4b", "qwen3-32b", "nemotron-4-340b",
+                   "qwen3p6-27b", "xlstm-1.3b")
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
@@ -219,11 +221,6 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r} (known: {', '.join(ARCH_IDS)})")
-    if arch not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"arch {arch!r}: its family is not ported to PyTorch yet; the "
-            f"port runs {', '.join(PORTED_ARCH_IDS)} (ROADMAP.md, Queue 1 "
-            f"item 7)")
     if arch not in _REGISTRY:
         module = arch.replace("-", "_").replace(".", "p")
         importlib.import_module(f"repro_torch.configs.{module}")
@@ -231,8 +228,7 @@ def get_config(arch: str) -> ModelConfig:
 
 
 def all_configs() -> dict[str, ModelConfig]:
-    """Every config the port can run (``PORTED_ARCH_IDS``)."""
-    for arch in PORTED_ARCH_IDS:
+    for arch in ARCH_IDS:
         get_config(arch)
     return dict(_REGISTRY)
 

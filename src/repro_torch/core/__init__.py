@@ -6,6 +6,7 @@ Layers (each applies the law at a different level of the stack):
   channels.py    — secure contexts: pooling, lifecycle economics, virtual clock
   compute.py     — roofline pricing of prefill/decode steps (the clock's
                    compute charges; the other side of the hideability ratio)
+  simulator.py   — decode-step pipeline model: policy inversion + recovery
   policy.py      — scheduling/offload policy vocabulary, CC-aware defaults
   accounting.py  — profiler attribution loop (closes the gap to op classes)
   gateway.py     — runtime crossing discipline (batch, drain, pool)
@@ -22,6 +23,10 @@ from .compute import (COMPUTE_SPECS, ComputeCharge, ComputeModel,
 from .policy import (
     OffloadPolicy, PolicyOutcome, RuntimeDefaults, SchedulingPolicy,
     cc_aware_defaults, detect_inversion, recovered_fraction,
+)
+from .simulator import (
+    Observation, ServingWorkload, StepBreakdown, fit_workload,
+    simulate_matrix, step_breakdown, tokens_per_s, tpot_ms,
 )
 from .accounting import Attribution, CopyRecord, OpClassRow, attribute, format_table
 from .gateway import GatewayStats, TransferGateway

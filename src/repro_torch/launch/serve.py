@@ -3,9 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \\
         --requests 16 --policy sync --cc
 
-runs full-width olmo-1b on the card (``--arch xlstm-1.3b`` the xLSTM
-stack; ``--smoke``, the default, runs the reduced config; ``--device cpu``
-runs on the CPU).  The TransferGateway
+runs full-width olmo-1b on the card (``--arch`` takes any arch the model
+runs: qwen1.5-4b and qwen3-32b fit one H100 at full width, nemotron-4-340b
+only at smoke width, xlstm-1.3b is the xLSTM stack; ``--smoke``, the
+default, runs the reduced config; ``--device cpu`` runs on the CPU).  The
+TransferGateway
 charges bridge-law costs to the virtual clock while the model runs for
 real, so one run reports real tokens, the wall-clock time they took, and
 the modelled CC economics of the chosen scheduling policy.

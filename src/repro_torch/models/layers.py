@@ -12,7 +12,7 @@ hand-written CUDA kernel for a tensor on the card, its plain version (the
 reference's ``dense_attention`` arithmetic) for a tensor on the CPU.
 ``dense_attention`` and ``blockwise_attention`` are kept as plain versions
 of the reference's two jnp attention paths.  MLA and MoE blocks are still
-to port (ROADMAP.md, Queue 1 item 7).
+to port (ROADMAP.md, Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -34,18 +34,28 @@ NEG_INF = -1e30
 
 def make_param(generator: torch.Generator, shape: tuple, *,
                fan_in: Optional[int] = None, dtype=torch.bfloat16,
-               device=None, zeros: bool = False,
-               ones: bool = False) -> torch.Tensor:
-    """A parameter drawn from ``generator``: normal / sqrt(fan_in), or
-    zeros / ones.  ``fan_in`` defaults to the leading dimension."""
+               device=None, zeros: bool = False, ones: bool = False,
+               lead: tuple = ()) -> torch.Tensor:
+    """A parameter of shape ``lead + shape`` drawn from ``generator``:
+    normal / sqrt(fan_in), or zeros / ones.  ``fan_in`` defaults to
+    ``shape[0]``.
+
+    A stacked parameter (``lead``, the layers axis) is drawn one ``shape``
+    slice at a time into a preallocated ``dtype`` tensor, so the f32
+    scratch is one slice: drawing qwen3-32b's (64, 5120, 25600) ``wi`` whole
+    would take 33.6 GB of f32, twice, beside the weights already drawn."""
+    full = tuple(lead) + tuple(shape)
     if zeros:
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros(full, dtype=dtype, device=device)
     if ones:
-        return torch.ones(shape, dtype=dtype, device=device)
+        return torch.ones(full, dtype=dtype, device=device)
     scale = 1.0 / math.sqrt(max(1, fan_in if fan_in is not None else shape[0]))
-    v = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (v * scale).to(dtype)
+    out = torch.empty(full, dtype=dtype, device=device)
+    for part in out.view(-1, *shape):
+        v = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        part.copy_(v.mul_(scale))
+    return out
 
 
 # ---------------------------------------------------------------------------------
@@ -191,7 +201,7 @@ def init_attention(generator, cfg, *, lead: tuple = (), device=None) -> Params:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def mk(shape, **kw):
-        return make_param(generator, lead + shape, dtype=cfg.dtype,
+        return make_param(generator, shape, lead=lead, dtype=cfg.dtype,
                           device=device, **kw)
 
     p = {
@@ -255,7 +265,7 @@ def init_mlp(generator, cfg, d_ff: Optional[int] = None, *, lead: tuple = (),
     d, f = cfg.d_model, d_ff or cfg.d_ff
 
     def mk(shape, fan_in):
-        return make_param(generator, lead + shape, fan_in=fan_in,
+        return make_param(generator, shape, lead=lead, fan_in=fan_in,
                           dtype=cfg.dtype, device=device)
 
     if cfg.mlp_kind == "swiglu":

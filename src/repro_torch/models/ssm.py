@@ -12,7 +12,7 @@ sequential) are plain torch, as the reference has no kernel for them.
 State structures (decode), as the reference's:
   mLSTM: {"C": (B,H,dk,dv), "n": (B,H,dk), "m": (B,H)}, f32
   sLSTM: {"c", "n", "h", "m"}: (B, inner), f32
-Mamba-2 (hymba's SSM heads) is still to port (ROADMAP.md, Queue 1 item 7).
+Mamba-2 (hymba's SSM heads) is still to port (ROADMAP.md, Queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -35,7 +35,9 @@ PAGE_SIZE = 16
 
 
 def check_supported(cfg) -> None:
-    """Raise for a config whose layers this package cannot run yet."""
+    """Raise for a config whose layers this package cannot run yet, naming
+    each missing feature.  Every arch's config loads (``get_config``) and
+    prices; this is where the model refuses the families still to port."""
     missing = []
     if cfg.family == "ssm":
         if cfg.ssm_kind != "xlstm":
@@ -59,7 +61,7 @@ def check_supported(cfg) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet "
-            f"(ROADMAP.md, Queue 1 item 7)")
+            f"(ROADMAP.md, Queue 1 item 4)")
 
 
 # ---------------------------------------------------------------------------------

@@ -7,7 +7,7 @@
                  ``TransferGateway.on_record``
 
 Stall attribution (``stalls.py``) and the Perfetto export (``timeline.py``)
-are still to port (ROADMAP.md, Queue 1 item 5).
+are still to port (ROADMAP.md, Queue 1 item 2).
 
 The observatory is passive: it never reads or advances the virtual clock,
 so enabling it cannot change a schedule, a tape, or a golden stream.

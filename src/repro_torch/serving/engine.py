@@ -156,7 +156,7 @@ class ServingEngine:
             raise NotImplementedError(
                 "tensor-parallel compute pricing (the per-step fabric "
                 "allreduce) is not ported to PyTorch yet (ROADMAP.md, "
-                "Queue 1 item 6)")
+                "Queue 1 item 3)")
         #: restore-aware scheduling: barrier is law, preference is a flag
         self.overlap = OverlapScheduler(
             self.clock, self.gateway.pool,

@@ -167,7 +167,9 @@ def test_port_reads_and_reprices_golden_tapes(policy):
         assert ours.total_replayed_s == ref.total_replayed_s
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3p6-27b", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3p6-27b", "xlstm-1.3b",
+                                  "qwen1.5-4b", "qwen3-32b",
+                                  "nemotron-4-340b", "deepseek-moe-16b"])
 def test_compute_pricing_matches_reference(arch):
     from repro.core.compute import ComputeModel as JCompute
     from repro_torch.core.compute import ComputeModel, _dtype_bytes
@@ -258,7 +260,8 @@ def test_tensor_parallel_pricing_raises(shared):
 
 def test_launcher_runs_on_cpu(capsys):
     from repro_torch.launch.serve import main
-    for arch in ("olmo-1b", "xlstm-1.3b"):
+    for arch in ("olmo-1b", "xlstm-1.3b", "qwen1.5-4b", "qwen3-32b",
+                 "nemotron-4-340b"):
         stats = main(["--arch", arch, "--device", "cpu", "--requests", "3",
                       "--max-new-tokens", "4", "--cc", "--policy", "sync"])
         assert stats["finished"] == 3 and stats["total_tokens"] == 12

@@ -58,7 +58,17 @@ print(json.dumps({"modules": mods, "bad": bad}))
                  "repro_torch.bridge_opt.arena",
                  "repro_torch.bridge_opt.coalescer",
                  "repro_torch.bridge_opt.restore",
-                 "repro_torch.serving.offload"):
+                 "repro_torch.serving.offload",
+                 "repro_torch.core.simulator", "repro_torch.bench",
+                 "repro_torch.bench.packed", "repro_torch.bench.obs",
+                 "repro_torch.configs.qwen1p5_4b",
+                 "repro_torch.configs.qwen3_32b",
+                 "repro_torch.configs.nemotron_4_340b",
+                 "repro_torch.configs.deepseek_moe_16b",
+                 "repro_torch.configs.deepseek_v2_lite_16b",
+                 "repro_torch.configs.hymba_1p5b",
+                 "repro_torch.configs.internvl2_76b",
+                 "repro_torch.configs.seamless_m4t_medium"):
         assert name in result["modules"]
     assert result["bad"] == []
 

@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
-from repro.configs.base import all_configs, smoke_config
+from repro.configs.base import ARCH_IDS, all_configs, smoke_config
 from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro.models.model import Model as JModel
@@ -30,7 +30,11 @@ from repro_torch.models.model import Model
 
 torch.set_num_threads(1)
 
-ARCHS = ["olmo-1b", "qwen3p6-27b"]
+#: the dense archs at smoke width: olmo-1b (tied embeddings, non-parametric
+#: LN), qwen3p6-27b and qwen3-32b (qk_norm with GQA), qwen1.5-4b (QKV bias,
+#: MHA), nemotron-4-340b (squared-ReLU, GQA); all but olmo-1b untied
+ARCHS = ["olmo-1b", "qwen3p6-27b", "qwen1.5-4b", "qwen3-32b",
+         "nemotron-4-340b"]
 BF16_TOL = 3e-2
 
 
@@ -267,9 +271,39 @@ def test_model_without_device_needs_cuda(monkeypatch):
         Model(t_smoke(get_config("olmo-1b")))
 
 
-def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("hymba-1.5b")
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        Model(dataclasses.replace(t_smoke(get_config("olmo-1b")),
-                                  sliding_window=16), device="cpu")
+@pytest.mark.parametrize("arch,change,feature", [
+    ("hymba-1.5b", {}, r"hybrid attention\+SSM blocks"),
+    ("deepseek-moe-16b", {}, "MoE"),
+    ("deepseek-v2-lite-16b", {}, "MLA"),
+    ("internvl2-76b", {}, "encoders and frontends"),
+    ("seamless-m4t-medium", {}, "encoders and frontends"),
+    ("olmo-1b", {"sliding_window": 16}, "sliding-window"),
+])
+def test_unported_families_raise(arch, change, feature):
+    """Every arch's config loads (it prices); the model refuses the
+    families still to port, naming the missing feature."""
+    cfg = dataclasses.replace(t_smoke(get_config(arch)), **change)
+    with pytest.raises(NotImplementedError, match=feature) as err:
+        Model(cfg, device="cpu")
+    assert "ROADMAP.md, Queue 1 item 4" in str(err.value)
+
+
+def _same_dtype(jdtype, tdtype) -> bool:
+    return jnp.dtype(jdtype).name == str(tdtype).removeprefix("torch.")
+
+
+@pytest.mark.parametrize("arch", list(ARCH_IDS))
+def test_config_matches_reference(arch):
+    """The port's config of every arch equals the reference's field by
+    field (dtypes mapped by name), and so does its parameter count."""
+    ref, ours = all_configs()[arch], get_config(arch)
+    for f in dataclasses.fields(ref):
+        a, b = getattr(ref, f.name), getattr(ours, f.name)
+        if f.name in ("dtype", "logits_dtype"):
+            assert _same_dtype(a, b), (f.name, a, b)
+        else:
+            assert a == b, (f.name, a, b)
+    assert [f.name for f in dataclasses.fields(ours)] == \
+        [f.name for f in dataclasses.fields(ref)]
+    assert ours.param_count() == ref.param_count()
+    assert ours.active_param_count() == ref.active_param_count()
