@@ -8,13 +8,19 @@ serves full-width olmo-1b, xlstm-1.3b, qwen1.5-4b and qwen3-32b (random
 weights from a seed) through the port's ``ServingEngine`` under the sync,
 async and worker policies, runs full-width olmo-1b's quantized KV restore
 under decode (bridge_opt on; restore codecs "", fp8 and int8, each
-restored block widened by the dequant kernel), checks that each path went
-through its kernels (launch counters: flash + paged for the dense models,
-the chunked mLSTM scan for xlstm-1.3b, dequant once per quantized restore)
-and that its crossing tapes obey the bridge law, profiles a decode step of
-olmo-1b, xlstm-1.3b and qwen3-32b, recomputes ``BENCH_packed.json`` and
-``BENCH_obs.json`` on the card (``repro_torch.bench``; a difference fails
-the run), and times each kernel, its plain version and the PyTorch call computing the
+restored block widened by the dequant kernel; the quantized restores again
+under seeded restore corruption, pipelined and on the sync-restore rung),
+serves full-width olmo-1b from a two-replica confidential cluster
+(``repro_torch.cluster``) under seeded bridge faults (fault-free twice,
+transient faults, the ladder ablation) after a probe of whether a row's
+logits depend on the decode width, checks that each path went through its
+kernels (launch counters: flash + paged for the dense models and the
+cluster, the chunked mLSTM scan for xlstm-1.3b, dequant once per
+quantized restore) and that its crossing tapes obey the bridge law,
+profiles a decode step of olmo-1b, xlstm-1.3b and qwen3-32b, recomputes
+``BENCH_packed.json``, ``BENCH_obs.json`` and ``BENCH_chaos.json`` on the
+card (``repro_torch.bench``; a difference fails the run), and times each
+kernel, its plain version and the PyTorch call computing the
 same function, where there is one (device time by the profiler; the flash
 kernel at each of the main path's prompt lengths and at 4096; the paged
 kernel at the main path's decode lengths, with every slot full, and at a
@@ -78,6 +84,18 @@ RESTORE = dict(max_batch=4, max_len=1024, prompt_len=512, block_tokens=16,
 #: at the top of the block (int8: 0.5/127; fp8 e4m3: 16 of 448), plus the
 #: f32 rounding of the scale, the product and the difference
 QUANT_BOUND = {"int8": 0.5 / 127, "fp8": 16 / 448}
+#: the chaos phase: ``benchmarks/bench_chaos.py``'s workload at full width
+#: (waves of greedy requests sharing a prefix of 32 KV blocks, each wave
+#: drained so the next restores the prefix warm over the faulted channel),
+#: served by a two-replica cluster of one model; the transient plan's seed
+#: and rate are the bench's ablation point
+CHAOS = dict(n_replicas=2, max_batch=8, max_len=1024, block_tokens=16,
+             n_pages=512, waves=3, wave_size=16, prefix_len=512, own_len=16,
+             new_tokens=32, seed=11, rate=0.3)
+#: the faulted restores' plan: restore corruption only, at p 0.5.  Seed 1's
+#: first two restore-corruption draws (0.355, 0.031) fall below 0.5, so a
+#: restore redoes twice (the restore policy's cap) on either path
+RESTORE_FAULTS = dict(seed=1, restore_corruption_p=0.5)
 F32_SLACK = 2.0 ** -22
 #: what phase_profile saw of the paged kernel, by model: the lengths of a
 #: profiled decode step and each launch's device time (us)
@@ -782,14 +800,18 @@ def dense_launches(cfg):
 
 
 def phase_drift() -> None:
-    """The port's drift checks on the card: ``repro_torch.bench.packed``
-    and ``repro_torch.bench.obs`` recompute ``BENCH_packed.json``'s and
-    ``BENCH_obs.json``'s virtual-clock rows with their smoke models on the
-    card; every value must equal the file's within ``REL_TOL``.  Then the
+    """The port's drift checks on the card: ``repro_torch.bench.packed``,
+    ``repro_torch.bench.obs`` and ``repro_torch.bench.chaos`` recompute
+    ``BENCH_packed.json``'s, ``BENCH_obs.json``'s and ``BENCH_chaos.json``'s
+    virtual-clock rows with their smoke models on the card (the chaos
+    check asserts its invariant inline: tokens identical at every fault
+    rate and in both ablation arms); every value must equal the file's
+    within ``REL_TOL``.  Then the
     obs-on / obs-off host wall-time ratio of the 2x open-loop run, printed
     (host wall time, no part of the drift file)."""
-    from repro_torch.bench import REL_TOL, obs, packed
-    for mod, name in ((packed, "BENCH_packed.json"), (obs, "BENCH_obs.json")):
+    from repro_torch.bench import REL_TOL, chaos, obs, packed
+    for mod, name in ((packed, "BENCH_packed.json"), (obs, "BENCH_obs.json"),
+                      (chaos, "BENCH_chaos.json")):
         t0 = time.perf_counter()
         problems = mod.check_drift(os.path.join(ROOT, name), DEVICE)
         print(f"drift check {name} on the card (rel tol {REL_TOL:g}): "
@@ -993,11 +1015,16 @@ def phase_profile(model) -> None:
 
 
 def _restore_run(model, kv_quant: str, blocks: list, shared: list,
-                 shorts: list) -> dict:
+                 shorts: list, *, faults=None, forced: bool = False) -> dict:
     """One restore-under-decode run: spill ``blocks`` through an
     ``OffloadManager`` on the engine's gateway, serve the shared prompt
     (``r0``) and the short ones, restore the blocks for ``r0`` after the
-    first step, and run to the end.  Returns what the checks read."""
+    first step, and run to the end.  Returns what the checks read.
+
+    ``faults`` (a ``FaultPlan``) attaches a fault injector to the gateway
+    before anything is spilled; ``forced`` puts its degradation ladder on
+    the sync-restore rung just before the restore.  A faulted run takes no
+    profiled breakdown."""
     from dataclasses import replace
     from repro_torch.core.bridge import B300, BridgeModel
     from repro_torch.core.policy import (OffloadPolicy, SchedulingPolicy,
@@ -1024,6 +1051,10 @@ def _restore_run(model, kv_quant: str, blocks: list, shared: list,
     engine.gateway.pool.prewarm()   # secure contexts up before serving
     recorder = TraceRecorder(engine.gateway, policy=sync.value,
                              label=f"chip-smoke-restore-{kv_quant or 'bf16'}")
+    injector = None
+    if faults is not None:
+        from repro_torch.resilience import FaultInjector
+        injector = FaultInjector(faults).attach(engine.gateway)
     counters = _counters()
     hashes = list(range(len(blocks)))
     try:
@@ -1044,6 +1075,10 @@ def _restore_run(model, kv_quant: str, blocks: list, shared: list,
             engine.step()               # every request resident and decoding
             torch.cuda.synchronize()
             before = sum(len(r.output_tokens) for r in engine.active.values())
+            if forced:
+                # held for the ladder's quiet window: the restore reads it
+                injector.ladder.escalate(engine.clock.now, reason="forced")
+                injector.ladder.observe_fault(engine.clock.now)
             t0 = time.perf_counter()
             hits = mgr.restore(hashes, key="r0")
             torch.cuda.synchronize()
@@ -1053,9 +1088,11 @@ def _restore_run(model, kv_quant: str, blocks: list, shared: list,
             torch.cuda.synchronize()
             run_wall = time.perf_counter() - t0
         counts = {name: fn.launches for name, fn in counters.items()}
-        timed = dict(mgr.restored)
-        breakdown = _restore_breakdown(mgr, hashes)
-        mgr.restored = timed
+        breakdown = None
+        if faults is None:
+            timed = dict(mgr.restored)
+            breakdown = _restore_breakdown(mgr, hashes)
+            mgr.restored = timed
     finally:
         engine.close()
     tape = recorder.tape()
@@ -1073,7 +1110,7 @@ def _restore_run(model, kv_quant: str, blocks: list, shared: list,
         dequant_s=sum(r.t_end - r.t_start for r in tape.records
                       if r.op_class == oc.DEQUANT_COMPUTE),
         restore_wall=restore_wall, run_wall=run_wall, breakdown=breakdown,
-        decode_tokens=stats["total_tokens"] - before)
+        decode_tokens=stats["total_tokens"] - before, injector=injector)
 
 
 def _restore_breakdown(mgr, hashes: list) -> str:
@@ -1178,7 +1215,9 @@ def phase_restore(model) -> int:
     Checks tokens across codecs, restore bytes, the tapes (law Q
     included), the launch counts (one dequant launch per quantized
     restore) and every restored block, and prints each codec's restore
-    breakdown.  Returns the dequant launches of the two quantized runs."""
+    breakdown.  Each quantized codec then restores twice more under
+    seeded restore corruption (``_faulted_restores``).  Returns the
+    dequant launches of the quantized runs."""
     cfg = model.cfg
     gen = torch.Generator().manual_seed(3)
     shared = torch.randint(1, cfg.vocab_size, (RESTORE["prompt_len"],),
@@ -1209,6 +1248,7 @@ def phase_restore(model) -> int:
                 "mlstm_scan": 0, "dequant": 1 if q else 0}
         check(counts == want, f"restore {name}: kernel launches {counts}, "
                               f"expected {want}")
+        clean = dict(run["mgr"].restored)
         checked = _check_restored(q, run["mgr"], blocks)
         dequant_launches += counts["dequant"]
         runs[q] = run
@@ -1230,6 +1270,9 @@ def phase_restore(model) -> int:
               f"{run['decode_tokens'] / run['run_wall']:.1f} decode tok/s")
         print(f"  restore breakdown (one more restore, profiled): "
               f"{run['breakdown']}")
+        if q:
+            dequant_launches += _faulted_restores(model, q, blocks, shared,
+                                                  shorts, clean, run)
     base = runs[""]
     for q in ("fp8", "int8"):
         check(runs[q]["tokens"] == base["tokens"],
@@ -1239,6 +1282,373 @@ def phase_restore(model) -> int:
               f"run's; tokens identical to it")
         check(ratio <= 0.55, f"restore {q}: wire ratio {ratio} > 0.55")
     return dequant_launches
+
+
+def _faulted_restores(model, kv_quant: str, blocks: list, shared: list,
+                      shorts: list, clean: dict, base: dict) -> int:
+    """The codec's restore again under ``RESTORE_FAULTS``, once with the
+    degradation ladder at level 0 (the pipelined restore, whose integrity
+    reject re-sends the whole prefix) and once forced to the sync-restore
+    rung (per-block redos).  Every restored block must be bit-equal to the
+    fault-free restore's (``clean``), redos are charged and move nothing
+    (one dequant launch a restore, one RETRY record a redo), and at least
+    one redo happens.  Returns the dequant launches."""
+    from repro_torch.resilience import FaultPlan
+    from repro_torch.trace import opclasses as oc
+    cfg = model.cfg
+    n_req = 1 + len(RESTORE["short_lens"])
+    launches = 0
+    for forced in (False, True):
+        arm = "sync-restore rung" if forced else "ladder at level 0"
+        run = _restore_run(model, kv_quant, blocks, shared, shorts,
+                           faults=FaultPlan(**RESTORE_FAULTS), forced=forced)
+        stats, mgr, counts = run["stats"], run["mgr"], run["counts"]
+        fs = run["injector"].stats
+        where = f"restore {kv_quant} under faults ({arm})"
+        check(run["hits"] == base["hits"], f"{where}: {run['hits']} restored")
+        check(stats["finished"] == n_req, f"{where}: {stats['finished']} "
+                                          f"of {n_req} requests finished")
+        want = {"flash_attention": n_req * cfg.n_layers,
+                "paged_attention": stats["steps"] * cfg.n_layers,
+                "mlstm_scan": 0, "dequant": 1}
+        check(counts == want, f"{where}: kernel launches {counts}, "
+                              f"expected {want}")
+        retries = [r for r in run["tape"].records if oc.RETRY in r.tags]
+        check(mgr.stats.restore_retries > 0
+              and len(retries) == mgr.stats.restore_retries
+              == fs.restore_corruptions,
+              f"{where}: {mgr.stats.restore_retries} redos, "
+              f"{len(retries)} RETRY records, {fs.restore_corruptions} "
+              f"corruptions")
+        check(mgr.stats.sync_restores_forced == int(forced)
+              and mgr.stats.pipelined_restores == int(not forced),
+              f"{where}: {mgr.stats.pipelined_restores} pipelined, "
+              f"{mgr.stats.sync_restores_forced} forced sync")
+        check(sorted(mgr.restored) == sorted(clean)
+              and all(_bit_equal(mgr.restored[h], clean[h]) for h in clean),
+              f"{where}: a restored block differs from the fault-free "
+              f"restore's")
+        launches += counts["dequant"]
+        print(f"{where}: plan {RESTORE_FAULTS}; {mgr.stats.restore_retries} "
+              f"redos ({len(retries)} RETRY records of "
+              f"{sum(r.nbytes for r in retries)} bytes, charged, none "
+              f"moved), {fs.injected_events} injected events; launches "
+              f"{counts}; {len(clean)} blocks bit-equal to the fault-free "
+              f"restore's; tokens identical to the fault-free run's: "
+              f"{run['tokens'] == base['tokens']}")
+        print(f"  modelled: redo s {fs.restore_redo_s!r}, virtual_time_s "
+              f"{stats['virtual_time_s']!r} (fault-free "
+              f"{base['stats']['virtual_time_s']!r})")
+        print(f"  measured on the card: restore wall "
+              f"{run['restore_wall']:.4f} s (fault-free "
+              f"{base['restore_wall']:.4f} s), run wall "
+              f"{run['run_wall']:.4f} s")
+    return launches
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.clone()
+
+
+def _top2_gap(logits: torch.Tensor) -> torch.Tensor:
+    """Per row, the largest logit less the second largest (f32, on the
+    card): how far a greedy token is from flipping."""
+    top = logits.reshape(logits.shape[0], -1).float().topk(2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def _width_probe(model, prompts: list) -> dict:
+    """The same 8 resident rows through ``model.decode_step`` at several
+    widths: packed 8, packed 5 (rows 0-4 and rows 3-7), each row alone,
+    and dense (all 8 slots, rows 5-7 as the dense step's padding), each
+    call on its own copy of the cache.  Returns whether every row's logits
+    are bit-equal across the widths it ran at and the largest difference
+    (against packed 8)."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import SamplingParams
+    engine = ServingEngine(model, max_batch=CHAOS["max_batch"],
+                           max_len=CHAOS["max_len"], cc_on=True, seed=0,
+                           device=DEVICE)
+    try:
+        for i, p in enumerate(prompts):
+            engine.submit(Request(f"p{i}", prompt=p,
+                                  sampling=SamplingParams(max_new_tokens=4)))
+        engine.step()               # all resident, one decode step taken
+        slots = sorted(engine.active)
+        check(len(slots) == CHAOS["max_batch"], "width probe: not all rows "
+                                                "resident")
+        tokens = [engine.active[s].output_tokens[-1] for s in slots]
+        index = [engine.active[s].index for s in slots]
+
+        def run(rows, width):
+            """Rows ``rows`` at slots ``rows`` in a call of ``width`` rows
+            (the rest, if any, padding at their slots)."""
+            pad = [s for s in slots if s not in rows][:width - len(rows)]
+            call = list(rows) + pad
+            tok = torch.tensor([[tokens[s] if s in rows else 0]
+                                for s in call], dtype=torch.int32,
+                               device=DEVICE)
+            idx = torch.tensor([index[s] if s in rows else 0 for s in call],
+                               dtype=torch.int32, device=DEVICE)
+            sl = torch.tensor(call, dtype=torch.int32, device=DEVICE)
+            order = sorted(range(len(call)), key=lambda i: call[i])
+            logits, _ = model.decode_step(_clone_tree(engine.caches),
+                                          tok[order], idx[order], sl[order])
+            lg = logits.reshape(len(call), -1).float()
+            return {call[i]: lg[j] for j, i in enumerate(order)
+                    if call[i] in rows}
+
+        full = run(slots, 8)
+        configs = {"packed 5 (rows 0-4)": run(slots[:5], 5),
+                   "packed 5 (rows 3-7)": run(slots[3:], 5),
+                   "dense (rows 0-4, 3 padding)": run(slots[:5], 8)}
+        alone = {}
+        for s in slots:
+            alone.update(run([s], 1))
+        configs["packed 1 (each row alone)"] = alone
+        torch.cuda.synchronize()
+    finally:
+        engine.close()
+    equal, worst = {s: True for s in slots}, 0.0
+    by_config = {}
+    for name, rows in configs.items():
+        diffs = {s: (rows[s] - full[s]).abs().max().item() for s in rows}
+        for s, d in diffs.items():
+            equal[s] = equal[s] and torch.equal(rows[s], full[s])
+        by_config[name] = max(diffs.values())
+        worst = max(worst, by_config[name])
+    gaps = torch.stack([_top2_gap(full[s][None])[0] for s in slots])
+    out = dict(independent=all(equal.values()), max_diff=worst,
+               rows_equal=[equal[s] for s in slots], by_config=by_config,
+               gaps=gaps.tolist())
+    per_config = ", ".join(f"{k} {v!r}" for k, v in by_config.items())
+    print(f"width probe ({model.cfg.name}, 8 resident rows at lengths "
+          f"{[i + 1 for i in index]}): rows bit-equal across widths "
+          f"{out['rows_equal']}; largest |logit difference| against packed "
+          f"8: {worst!r} ({per_config}); top-2 gaps at packed 8 "
+          f"{[round(g, 6) for g in out['gaps']]}")
+    return out
+
+
+def _chaos_run(model, prompts: list, plan, *, ladder: bool = True) -> dict:
+    """One run of the chaos workload on a fresh two-replica cluster of
+    ``model`` under ``plan`` (None: fault-free; ``ladder`` False pins the
+    degradation ladders at level 0).  Records, per request and token, the
+    width of the forward that made it (0: the prefill) and that forward's
+    top-2 logit gap for the token's row."""
+    from repro_torch.bench.chaos import summarize
+    from repro_torch.cluster import ReplicaConfig, RoutingPolicy, build_cluster
+    from repro_torch.obs import attribute_stalls
+    from repro_torch.resilience import DegradationLadder
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.sampler import SamplingParams
+    from repro_torch.trace import check_tape
+
+    cfg = model.cfg
+    kv_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+                * torch.finfo(cfg.dtype).bits // 8)
+    cluster = build_cluster(
+        model, n_replicas=CHAOS["n_replicas"],
+        routing=RoutingPolicy.LEAST_LOADED, fault_plan=plan, seed=0,
+        replica_cfg=ReplicaConfig(
+            max_batch=CHAOS["max_batch"], max_len=CHAOS["max_len"],
+            block_tokens=CHAOS["block_tokens"], n_pages=CHAOS["n_pages"],
+            kv_bytes_per_token=kv_bytes, coalesce_small_crossings=True))
+    if not ladder:
+        for r in cluster.replicas:
+            if r.faults is not None:
+                r.faults.ladder = DegradationLadder(enabled=False)
+    records, stash = {}, {}
+    inner_prefill, inner_decode = model.prefill, model.decode_step
+
+    def prefill(*a, **k):
+        out = inner_prefill(*a, **k)
+        stash["gap"] = _top2_gap(out[0])
+        return out
+
+    def decode_step(*a, **k):
+        out = inner_decode(*a, **k)
+        stash["gap"] = _top2_gap(out[0])
+        return out
+
+    for r in cluster.replicas:
+        eng = r.engine
+
+        def admit(req, slot, _inner=eng._prefill_into_slot):
+            _inner(req, slot)
+            records[req.request_id] = [(0, stash["gap"][0].item())]
+
+        def consume(ready, host, *, by_position, _eng=eng,
+                    _inner=eng._consume):
+            step = _eng.trace[-1]
+            gaps = stash["gap"].cpu()
+            width = step.packed or _eng.max_batch
+            for pos, s in enumerate(ready):
+                records[_eng.active[s].request_id].append(
+                    (width, gaps[pos if step.packed else s].item()))
+            _inner(ready, host, by_position=by_position)
+
+        eng._prefill_into_slot, eng._consume = admit, consume
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    model.prefill, model.decode_step = prefill, decode_step
+    submitted = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for wave in range(CHAOS["waves"]):
+            for i in range(CHAOS["wave_size"]):
+                rid = f"w{wave}r{i}"
+                check(cluster.submit(Request(rid, prompt=prompts[submitted],
+                                             sampling=SamplingParams(
+                                                 max_new_tokens=CHAOS[
+                                                     "new_tokens"])))
+                      is not None, f"chaos: the cluster shed {rid}")
+                submitted += 1
+            cluster.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in counters.items()}
+        out = summarize(cluster, submitted)
+        tapes = [r.tape() for r in cluster.replicas]
+        for tape in tapes:
+            report = check_tape(tape)
+            check(report.ok, f"chaos: replica tape violates the bridge law:"
+                             f"\n{report.format()}")
+        closure = min(attribute_stalls(t).closure for t in tapes)
+        prefills = sum(1 + e["request"].restarts for e in cluster.request_log)
+        steps = sum(r.engine.step_count for r in cluster.replicas)
+        out.update(
+            wall=wall, counts=counts, closure=closure, records=records,
+            expected={"flash_attention": prefills * cfg.n_layers,
+                      "paged_attention": steps * cfg.n_layers,
+                      "mlstm_scan": 0, "dequant": 0},
+            restore_retries=sum(r.offload.stats.restore_retries
+                                for r in cluster.replicas),
+            crossings=sum(t.n_crossings() for t in tapes), steps=steps)
+    finally:
+        del model.prefill, model.decode_step
+        cluster.close()
+    return out
+
+
+def _token_criterion(label: str, base: dict, run: dict, probe: dict) -> int:
+    """Hold ``run``'s tokens to the fault-free run's.  With width-independent
+    rows they must be equal; otherwise each request's tokens must equal the
+    fault-free run's up to a first difference, where a forward of that
+    request up to the token ran at another width in the two runs (the
+    token's own, or an earlier one whose K/V it reads) and the fault-free
+    top-2 logit gap is at most the width probe's largest difference.
+    Returns the number of such requests; any other difference fails."""
+    explained = at_token = 0
+    for rid, want in base["tokens"].items():
+        got = run["tokens"][rid]
+        if got == want:
+            continue
+        check(not probe["independent"], f"chaos {label}: {rid}'s tokens "
+              f"differ from the fault-free run's, though rows are "
+              f"width-independent")
+        check(len(got) == len(want), f"chaos {label}: {rid} has {len(got)} "
+                                     f"tokens, fault-free {len(want)}")
+        p = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+        bw = [w for w, _ in base["records"][rid]]
+        rw = [w for w, _ in run["records"][rid]]
+        gap = base["records"][rid][p][1]
+        other = [i for i in range(p + 1) if bw[i] != rw[i]]
+        check(bool(other) and gap <= probe["max_diff"],
+              f"chaos {label}: {rid} differs first at token {p} (fault-free "
+              f"{want[p]}, here {got[p]}); widths fault-free {bw[:p + 1]}, "
+              f"here {rw[:p + 1]}; fault-free top-2 gap {gap!r} against the "
+              f"probe's largest difference {probe['max_diff']!r}")
+        explained += 1
+        at_token += bw[p] != rw[p]
+    if explained:
+        print(f"  {explained} requests differ from the fault-free run's "
+              f"tokens within the width criterion ({at_token} at a token "
+              f"made at another width, {explained - at_token} after an "
+              f"earlier forward at another width)")
+    return explained
+
+
+def phase_chaos(model) -> dict:
+    """Full-width olmo-1b served by a two-replica cluster under seeded
+    bridge faults (``CHAOS``; least-loaded routing, coalescer on): twice
+    fault-free (the second must repeat the first byte for byte), under
+    ``FaultPlan.transient`` and under the ablation plan (MAC rejects and
+    restore corruption) with the degradation ladder on and off.  A width
+    probe first says whether a row's logits depend on the width of the
+    forward; the faulted runs' tokens are held to the fault-free run's by
+    ``_token_criterion``.  Checks per run: nothing lost, faults injected
+    where planned, a rung reached with the ladder on, every replica tape
+    lawful with stall closure >= 0.99, flash and paged launches as
+    expected.  Returns the launches of the runs, by kernel."""
+    from repro_torch.resilience import FaultPlan
+    gen = torch.Generator().manual_seed(4)
+    vocab = model.cfg.vocab_size
+    prefix = torch.randint(1, vocab, (CHAOS["prefix_len"],),
+                           generator=gen).tolist()
+    n = CHAOS["waves"] * CHAOS["wave_size"]
+    prompts = [prefix + torch.randint(1, vocab, (CHAOS["own_len"],),
+                                      generator=gen).tolist()
+               for _ in range(n)]
+    probe = _width_probe(model, prompts[:CHAOS["max_batch"]])
+    seed, rate = CHAOS["seed"], CHAOS["rate"]
+    ablation = FaultPlan(seed=seed, crossing_failure_p=rate,
+                         restore_corruption_p=rate)
+    arms = [("fault-free", None, True), ("fault-free again", None, True),
+            (f"transient seed {seed} rate {rate}",
+             FaultPlan.transient(seed=seed, rate=rate), True),
+            ("ablation, ladder on", ablation, True),
+            ("ablation, ladder off", ablation, False)]
+    launches = dict.fromkeys(_counters(), 0)
+    runs = {}
+    for label, plan, ladder in arms:
+        r = _chaos_run(model, prompts, plan, ladder=ladder)
+        runs[label] = r
+        for k, v in r["counts"].items():
+            launches[k] += v
+        print(f"chaos {label} ({model.cfg.name}, {CHAOS['n_replicas']} "
+              f"replicas): {r['submitted']} requests, {r['lost']} lost, "
+              f"{r['total_tokens']} tokens, {r['steps']} decode steps, "
+              f"{r['crossings']} crossings; modelled goodput "
+              f"{r['goodput_tok_s']!r} tok/s, TTFT p99 {r['ttft_p99_ms']!r} "
+              f"ms, MTTR {r['mttr_ms']!r} ms; injected "
+              f"{r['injected_events']}, max rung {r['max_rung']}, "
+              f"restore_retries {r['restore_retries']}, warm blocks "
+              f"restored {r['warm_blocks_restored']}; launches flash "
+              f"{r['counts']['flash_attention']} (expected "
+              f"{r['expected']['flash_attention']}) paged "
+              f"{r['counts']['paged_attention']} (expected "
+              f"{r['expected']['paged_attention']}); tapes ok, stall "
+              f"closure >= {r['closure']:.6f}; wall {r['wall']:.3f} s")
+        check(r["lost"] == 0, f"chaos {label}: {r['lost']} requests lost")
+        check(r["counts"] == r["expected"], f"chaos {label}: launches "
+              f"{r['counts']}, expected {r['expected']}")
+        check(r["closure"] >= 0.99, f"chaos {label}: stall closure "
+                                    f"{r['closure']}")
+        if plan is not None:
+            check(r["injected_events"] > 0, f"chaos {label}: no fault "
+                                             f"injected")
+        if plan is not None and ladder:
+            check(r["max_rung"] >= 1, f"chaos {label}: the ladder never "
+                                      f"left level 0")
+    base = runs["fault-free"]
+    check(runs["fault-free again"]["tokens"] == base["tokens"],
+          "chaos: two fault-free runs gave different tokens")
+    differ = {label: _token_criterion(label, base, runs[label], probe)
+              for label, plan, _ in arms if plan is not None}
+    arms_equal = (runs["ablation, ladder on"]["tokens"]
+                  == runs["ablation, ladder off"]["tokens"])
+    print(f"chaos token criterion: rows width-independent "
+          f"{probe['independent']}; requests differing from the fault-free "
+          f"run within the criterion {differ}; two fault-free runs "
+          f"identical; ablation arms' tokens identical {arms_equal}")
+    return launches
 
 
 def mlstm_work(b, s, h, dk, dv, chunk) -> tuple:
@@ -1925,6 +2335,8 @@ def main() -> None:
     launches = phase_main(model, dense_launches(model.cfg))
     phase_profile(model)
     launches["dequant"] += phase_restore(model)
+    more = phase_chaos(model)
+    launches = {k: n + more[k] for k, n in launches.items()}
     del model
     torch.cuda.empty_cache()
 

@@ -3,6 +3,7 @@ repository's ``BENCH_*.json`` files and compares it with the file.
 
     PYTHONPATH=src python -m repro_torch.bench.packed --check [PATH] [--device cpu]
     PYTHONPATH=src python -m repro_torch.bench.obs --check [PATH] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.bench.chaos --check [PATH] [--device cpu]
 
 ``--check`` reads the file at the repository's root unless given a path,
 prints ``<file>: OK`` or every value that differs, and exits 1 on a
@@ -52,7 +53,7 @@ def load(path: str) -> dict:
 
 
 def drift_main(argv, *, filename: str, doc: str, check_drift, rows) -> None:
-    """The command line of both modules: ``--check [PATH]`` runs
+    """The command line of every module: ``--check [PATH]`` runs
     ``check_drift(path, device)`` and exits 1 on a difference; without it
     ``rows(device)`` is printed line by line."""
     from repro_torch.device import resolve_device

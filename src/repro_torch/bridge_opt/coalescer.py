@@ -37,9 +37,8 @@ Conservation invariants (property-tested): flushes conserve total bytes
 and crossing count, and no queued crossing is ever dropped — a barrier or
 close always drains both queues.
 
-PyTorch counterpart of ``repro.bridge_opt.coalescer``.  ``set_bypass`` (the
-degradation ladder's rung) is carried over; the port's resilience layer,
-which would call it, is not ported yet.
+PyTorch counterpart of ``repro.bridge_opt.coalescer``; the degradation
+ladder's coalescer-bypass rung calls ``set_bypass``.
 """
 
 from __future__ import annotations

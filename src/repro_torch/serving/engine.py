@@ -35,9 +35,7 @@ Differences from the reference:
     coalesced upload returns are real uploads, so the model still reads
     what crossed;
   * tensor-parallel pricing is not ported yet: a compute model that asks
-    for it raises ``NotImplementedError``.  Nor is the resilience layer's
-    degradation ladder: no step runs degraded and the coalescer is never
-    bypassed.
+    for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -351,6 +349,34 @@ class ServingEngine:
             if self.obs is not None:
                 self.obs.spans.on_preempt(req.request_id, self.clock.now)
 
+    # -- degradation ladder (resilience) -----------------------------------------------
+
+    def _ladder(self):
+        """The fault injector's degradation ladder, when one is attached to
+        the gateway (duck-typed: the engine never imports resilience)."""
+        faults = getattr(self.gateway, "faults", None)
+        return faults.ladder if faults is not None else None
+
+    def _degraded_tags(self) -> tuple:
+        """DEGRADED on every compute charge while the ladder sits above
+        level 0: the tape shows exactly which intervals ran degraded."""
+        ladder = self._ladder()
+        if ladder is not None and ladder.level > 0:
+            return (oc.DEGRADED,)
+        return ()
+
+    def _sync_ladder(self) -> None:
+        """Per-step ladder bookkeeping: recovery hysteresis on the virtual
+        clock, and the coalescer-bypass rung applied or released (entering
+        bypass barrier-flushes both queues so nothing is stranded)."""
+        ladder = self._ladder()
+        if ladder is None:
+            return
+        ladder.maybe_recover(self.clock.now)
+        if (self.coalescer is not None
+                and self.coalescer.bypass != ladder.coalescer_bypassed):
+            self.coalescer.set_bypass(ladder.coalescer_bypassed)
+
     # -- the decode step under each policy ------------------------------------------------
 
     def _ready_slots(self, slots: list) -> tuple[list, list]:
@@ -390,14 +416,18 @@ class ServingEngine:
 
         With ``packed_decode`` on (the default) the step runs over exactly
         the ready slots (``_step_packed``); otherwise over every slot
-        (``_step_dense``).  Greedy token streams are identical."""
+        (``_step_dense``).  Greedy token streams are identical.  The
+        degradation ladder's last rung forces the dense step."""
+        self._sync_ladder()
         self._admit()
         if not self.active:
             return 0
         self.step_count += 1
         slots = sorted(self.active)
         ready, deferred = self._ready_slots(slots)
-        if self.defaults.packed_decode:
+        ladder = self._ladder()
+        if self.defaults.packed_decode and not (
+                ladder is not None and ladder.dense_step_forced):
             return self._step_packed(slots, ready, deferred)
         return self._step_dense(slots, ready, deferred)
 
@@ -427,13 +457,15 @@ class ServingEngine:
                     [float(index[s]) for s in ready])
                 self.gateway.charge_compute(
                     charge.seconds, op_class=oc.DECODE_MASKED,
-                    tags=(oc.MASKED,) + (oc.DEFERRED,) * len(deferred),
+                    tags=(oc.MASKED,) + (oc.DEFERRED,) * len(deferred)
+                    + self._degraded_tags(),
                     bound=charge.bound)
             else:
                 kv_len = float(np.mean([index[s] for s in ready]))
                 charge = self.compute.decode_charge(len(ready), kv_len=kv_len)
                 self.gateway.charge_compute(
                     charge.seconds, op_class=oc.DECODE_COMPUTE,
+                    tags=self._degraded_tags(),
                     bound=charge.bound)
         # batch sampling params come from the lowest resident slot
         next_tokens = sample(logits, self.generator,
@@ -484,7 +516,8 @@ class ServingEngine:
                 [float(k) for k in batch.kv_lens])
             self.gateway.charge_compute(
                 charge.seconds, op_class=oc.DECODE_PACKED,
-                tags=(oc.PACKED,) + (oc.DEFERRED,) * len(deferred),
+                tags=(oc.PACKED,) + (oc.DEFERRED,) * len(deferred)
+                + self._degraded_tags(),
                 bound=charge.bound)
         next_tokens = sample(logits, self.generator,
                              self.active[slots[0]].sampling)

@@ -27,8 +27,11 @@ and charge is the reference's; what moves is real:
     as in the reference, and restore nothing; a block the clamp keeps at
     full width (``wire_bytes == raw_bytes``) crosses as its own bytes.
 
-The resilience layer (restore redos, the degradation ladder's sync-restore
-rung) is not ported: restores here never retry.
+With a fault injector on the gateway, the resilience layer's hooks are the
+reference's: the degradation ladder's sync-restore rung forces the bulk
+path, and an integrity reject after the transfer lands is charged as a
+``RETRY`` re-send (charge only: no bytes move again, and ``restored`` holds
+the same tensors as a fault-free restore's).
 """
 
 from __future__ import annotations
@@ -67,8 +70,11 @@ class OffloadStats:
     restore_fill_s: float = 0.0
     #: restore seconds moved off the critical path (vs a blocking drain)
     restore_overlap_s: float = 0.0
-    # ---- resilience (not ported: these stay 0) ----------------------------
+    # ---- resilience -------------------------------------------------------
+    #: integrity-reject redos: pipelined restores re-send the whole prefix
+    #: (one MAC stream), sync restores re-send one block
     restore_retries: int = 0
+    #: restores the degradation ladder forced down the sync (bulk) path
     sync_restores_forced: int = 0
     #: on_restore_done subscribers that raised (isolated, logged, counted)
     callback_errors: int = 0
@@ -303,6 +309,8 @@ class OffloadManager:
         self.stats.restore_misses += misses
         total = sum(b.payload_bytes for b in hits)
         done_t = self.gateway.clock.now
+        faults = getattr(self.gateway, "faults", None)
+        ladder = faults.ladder if faults is not None else None
         if hits:
             quantized = any(b.codec for b in hits)
             if quantized:
@@ -321,8 +329,10 @@ class OffloadManager:
                             for b in hits]
                 raw_list, codec = None, ""
                 wire_total = total
+            sync_forced = ladder is not None and ladder.sync_restore_forced
             use_pipelined = (self.pipelined_restore
-                             and self.gateway.pool.n_workers >= 2)
+                             and self.gateway.pool.n_workers >= 2
+                             and not sync_forced)
             if use_pipelined:
                 arrived, result = pipelined_h2d(
                     self.gateway, payloads,
@@ -335,6 +345,8 @@ class OffloadManager:
                 self.stats.restore_overlap_s += result.overlap_s
                 done_t = result.done_t
             else:
+                if self.pipelined_restore and sync_forced:
+                    self.stats.sync_restores_forced += 1
                 arrived = self.gateway.bulk_h2d_pooled(
                     payloads,
                     op_class=oc.KV_RESTORE_Q if quantized
@@ -357,6 +369,31 @@ class OffloadManager:
                         tags=(oc.QUANTIZED,), bound=dq.bound)
                     self.stats.dequant_s += dq.seconds
                     done_t = max(done_t, self.gateway.clock.now)
+            if faults is not None:
+                # integrity verify after the transfer lands.  The pipelined
+                # path MACs the whole prefix as one stream, so a reject
+                # re-sends everything; the sync path verifies per block and
+                # re-sends exactly one (the asymmetry the sync-restore rung
+                # trades for).  Redos are bounded by the restore policy and
+                # the final verify is forced clean.  A redo is charged, not
+                # executed: what already landed in ``restored`` stands.
+                attempt = 0
+                while faults.restore_corrupted(attempt, key=key or ""):
+                    # redos re-send what actually crosses: wire bytes for a
+                    # quantized restore, full width otherwise
+                    if use_pipelined:
+                        redo_bytes = wire_total
+                    else:
+                        b = hits[attempt % len(hits)]
+                        redo_bytes = ((b.wire_bytes or b.payload_bytes)
+                                      if quantized else b.payload_bytes)
+                    redo = self.gateway.charge_crossing(
+                        redo_bytes, Direction.H2D,
+                        op_class=oc.KV_RESTORE_H2D, tags=(oc.RETRY,))
+                    faults.note_restore_redo(redo)
+                    self.stats.restore_retries += 1
+                    done_t = max(done_t, self.gateway.clock.now)
+                    attempt += 1
             self.stats.restored_blocks += len(hits)
             self.stats.restored_bytes += total
             if key is not None:

@@ -1,10 +1,13 @@
-"""The port's drift checks against ``BENCH_packed.json`` and ``BENCH_obs.json``.
+"""The port's drift checks against ``BENCH_packed.json``, ``BENCH_obs.json``
+and ``BENCH_chaos.json``.
 
-On the CPU, ``repro_torch.bench.packed``'s roofline rows and engine rows
-and ``repro_torch.bench.obs``'s capacity and load curves equal the files
-the reference's benchmarks wrote, within ``REL_TOL`` (1e-9); ``--check``
-passes on the files and exits 1 on a perturbed copy; neither module can
-write a drift file; the default device is the card, with no quiet CPU run.
+On the CPU, ``repro_torch.bench.packed``'s roofline rows and engine rows,
+``repro_torch.bench.obs``'s capacity and load curves and
+``repro_torch.bench.chaos``'s fault-rate sweep and ladder ablation equal
+the files the reference's benchmarks wrote, within ``REL_TOL`` (1e-9);
+``--check`` passes on the files and exits 1 on a perturbed copy; no module
+can write a drift file; the default device is the card, with no quiet CPU
+run.
 """
 
 import json
@@ -15,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.bench import REL_TOL, close, diff_rows
+from repro_torch.bench import chaos as bench_chaos
 from repro_torch.bench import obs as bench_obs
 from repro_torch.bench import packed as bench_packed
 
@@ -22,8 +26,9 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DRIFT = {"packed": os.path.join(ROOT, "BENCH_packed.json"),
-         "obs": os.path.join(ROOT, "BENCH_obs.json")}
-MODULES = {"packed": bench_packed, "obs": bench_obs}
+         "obs": os.path.join(ROOT, "BENCH_obs.json"),
+         "chaos": os.path.join(ROOT, "BENCH_chaos.json")}
+MODULES = {"packed": bench_packed, "obs": bench_obs, "chaos": bench_chaos}
 
 
 def _golden(name):
@@ -72,6 +77,8 @@ def _perturb(name, tmp_path):
     data = _golden(name)
     if name == "packed":
         data["roofline"][5]["tok_s"] *= 1 + 1e-6
+    elif name == "chaos":
+        data["sweep"][2]["goodput_tok_s"] *= 1 + 1e-6
     else:
         data["curves"][1]["ttft_p99_s"] *= 1 + 1e-6
     path = tmp_path / f"perturbed_{name}.json"
@@ -79,7 +86,7 @@ def _perturb(name, tmp_path):
     return str(path)
 
 
-@pytest.mark.parametrize("name", ["packed", "obs"])
+@pytest.mark.parametrize("name", ["packed", "obs", "chaos"])
 def test_check_passes_on_file_and_fails_on_perturbed_copy(name, tmp_path,
                                                           capsys):
     mod = MODULES[name]
@@ -92,7 +99,7 @@ def test_check_passes_on_file_and_fails_on_perturbed_copy(name, tmp_path,
     assert "differs" in out and ("tok_s" in out or "ttft_p99_s" in out)
 
 
-@pytest.mark.parametrize("name", ["packed", "obs"])
+@pytest.mark.parametrize("name", ["packed", "obs", "chaos"])
 def test_no_write_option(name, capsys):
     with pytest.raises(SystemExit) as exit_:
         MODULES[name].main(["--write"])
@@ -100,8 +107,28 @@ def test_no_write_option(name, capsys):
     assert not hasattr(MODULES[name], "write")
 
 
-@pytest.mark.parametrize("name", ["packed", "obs"])
+@pytest.mark.parametrize("name", ["packed", "obs", "chaos"])
 def test_default_device_is_the_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         MODULES[name].main(["--check", DRIFT[name]])
+
+
+def test_chaos_sweep_and_ablation_match_file():
+    """The sweep (with the chaos invariant asserted at every rate) and the
+    ablation, row by row, and the rows' own claims: every faulted rate
+    slower than fault-free, the ladder paying for itself."""
+    fresh = bench_chaos.payload("cpu")
+    gold = _golden("chaos")
+    problems = []
+    diff_rows("sweep", gold["sweep"], fresh["sweep"], ("rate",), problems)
+    diff_rows("ablation", [gold["ablation"]], [fresh["ablation"]],
+              ("rate",), problems)
+    assert problems == []
+    assert [r["rate"] for r in fresh["sweep"]] == list(bench_chaos.RATES)
+    assert all(r["lost"] == 0 for r in fresh["sweep"])
+    assert all(r["injected_events"] > 0 for r in fresh["sweep"][1:])
+    base = fresh["sweep"][0]["goodput_tok_s"]
+    assert all(r["goodput_tok_s"] < base for r in fresh["sweep"][1:])
+    assert fresh["ablation"]["goodput_ratio"] > 1.0
+    assert fresh["ablation"]["max_rung_on"] >= 1

@@ -68,7 +68,16 @@ print(json.dumps({"modules": mods, "bad": bad}))
                  "repro_torch.configs.deepseek_v2_lite_16b",
                  "repro_torch.configs.hymba_1p5b",
                  "repro_torch.configs.internvl2_76b",
-                 "repro_torch.configs.seamless_m4t_medium"):
+                 "repro_torch.configs.seamless_m4t_medium",
+                 "repro_torch.resilience", "repro_torch.resilience.retry",
+                 "repro_torch.resilience.degrade",
+                 "repro_torch.resilience.faults",
+                 "repro_torch.obs.stalls", "repro_torch.obs.timeline",
+                 "repro_torch.cluster", "repro_torch.cluster.budget",
+                 "repro_torch.cluster.tenant_manager",
+                 "repro_torch.cluster.replica",
+                 "repro_torch.cluster.autoscaler",
+                 "repro_torch.cluster.router", "repro_torch.bench.chaos"):
         assert name in result["modules"]
     assert result["bad"] == []
 
