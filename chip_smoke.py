@@ -4,22 +4,29 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with
 nvcc (sm_90a), holds each kernel to its plain PyTorch version on the card,
-serves full-width olmo-1b, xlstm-1.3b, qwen1.5-4b and qwen3-32b (random
-weights from a seed) through the port's ``ServingEngine`` under the sync,
-async and worker policies, runs full-width olmo-1b's quantized KV restore
-under decode (bridge_opt on; restore codecs "", fp8 and int8, each
-restored block widened by the dequant kernel; the quantized restores again
-under seeded restore corruption, pipelined and on the sync-restore rung),
-serves full-width olmo-1b from a two-replica confidential cluster
-(``repro_torch.cluster``) under seeded bridge faults (fault-free twice,
-transient faults, the ladder ablation) after a probe of whether a row's
-logits depend on the decode width, checks that each path went through its
-kernels (launch counters: flash + paged for the dense models and the
-cluster, the chunked mLSTM scan for xlstm-1.3b, dequant once per
-quantized restore) and that its crossing tapes obey the bridge law,
-profiles a decode step of olmo-1b, xlstm-1.3b and qwen3-32b, recomputes
-``BENCH_packed.json``, ``BENCH_obs.json`` and ``BENCH_chaos.json`` on the
-card (``repro_torch.bench``; a difference fails the run), and times each
+serves full-width olmo-1b, xlstm-1.3b, qwen1.5-4b, qwen3p6-27b and
+qwen3-32b (random weights from a seed) through the port's
+``ServingEngine`` under the sync, async and worker policies, runs
+full-width olmo-1b's quantized KV restore under decode (bridge_opt on;
+restore codecs "", fp8 and int8, each restored block widened by the
+dequant kernel; the quantized restores again under seeded restore
+corruption, pipelined and on the sync-restore rung), serves full-width
+olmo-1b from a two-replica confidential cluster (``repro_torch.cluster``)
+under seeded bridge faults (fault-free twice, transient faults, the
+ladder ablation) after a probe of whether a row's logits depend on the
+decode width, writes full-width olmo-1b's weights as a sharded checkpoint
+and loads them back through the port's ``PooledLoader`` (full width,
+int8 weight-only pricing, TP 4; the loaded model must serve the in-memory
+model's tokens; pageable and page-locked uploads timed beside it), serves
+it from a one-replica cluster at TP 1, 2, 4 and 8 (tokens identical,
+P2P only above TP 1), checks that each path went through its kernels
+(launch counters: flash + paged for the dense models and the clusters,
+the chunked mLSTM scan for xlstm-1.3b, dequant once per quantized
+restore) and that its crossing tapes obey the bridge law, profiles a
+decode step of olmo-1b, xlstm-1.3b, qwen3p6-27b and qwen3-32b, recomputes
+``BENCH_packed.json``, ``BENCH_obs.json``, ``BENCH_chaos.json``,
+``BENCH_tp.json`` and ``BENCH_quant.json`` on the card
+(``repro_torch.bench``; a difference fails the run), and times each
 kernel, its plain version and the PyTorch call computing the
 same function, where there is one (device time by the profiler; the flash
 kernel at each of the main path's prompt lengths and at 4096; the paged
@@ -27,8 +34,8 @@ kernel at the main path's decode lengths, with every slot full, and at a
 profiled decode step's lengths back to back, after idle and after a
 GEMM; the mLSTM kernel at the longest prompt and summed over one main
 path run's prefills; the dequant kernel at a restore's shape, one list
-call against 32 single calls; flash and paged at qwen1.5-4b's and
-qwen3-32b's head layouts).  It prints
+call against 32 single calls; flash and paged at qwen1.5-4b's,
+qwen3p6-27b's and qwen3-32b's head layouts).  It prints
 the card's name and power limit, one ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the repository's ``src`` beside it, it exits non-zero and prints
@@ -92,6 +99,16 @@ QUANT_BOUND = {"int8": 0.5 / 127, "fp8": 16 / 448}
 CHAOS = dict(n_replicas=2, max_batch=8, max_len=1024, block_tokens=16,
              n_pages=512, waves=3, wave_size=16, prefix_len=512, own_len=16,
              new_tokens=32, seed=11, rate=0.3)
+#: the loader phase: full-width olmo-1b's own weights written in
+#: ``n_shards`` shards and loaded back by a pool of ``n_workers``
+LOADER = dict(n_shards=8, n_workers=8)
+#: the TP phase: ``benchmarks/bench_tp.py``'s guardrail at full width (a
+#: one-replica cluster, partition of 8; 8 greedy requests, each a shared
+#: prompt of ``prompt_len`` plus ``own_len`` tokens of its own, with
+#: ``new_tokens`` + i % 4 new tokens), at each TP degree
+TP = dict(degrees=(1, 2, 4, 8), partition_size=8, max_batch=8, max_len=1024,
+          block_tokens=16, n_pages=512, n_requests=8, prompt_len=256,
+          own_len=4, new_tokens=8)
 #: the faulted restores' plan: restore corruption only, at p 0.5.  Seed 1's
 #: first two restore-corruption draws (0.355, 0.031) fall below 0.5, so a
 #: restore redoes twice (the restore policy's cap) on either path
@@ -801,22 +818,28 @@ def dense_launches(cfg):
 
 def phase_drift() -> None:
     """The port's drift checks on the card: ``repro_torch.bench.packed``,
-    ``repro_torch.bench.obs`` and ``repro_torch.bench.chaos`` recompute
-    ``BENCH_packed.json``'s, ``BENCH_obs.json``'s and ``BENCH_chaos.json``'s
-    virtual-clock rows with their smoke models on the card (the chaos
-    check asserts its invariant inline: tokens identical at every fault
-    rate and in both ablation arms); every value must equal the file's
-    within ``REL_TOL``.  Then the
-    obs-on / obs-off host wall-time ratio of the 2x open-loop run, printed
-    (host wall time, no part of the drift file)."""
-    from repro_torch.bench import REL_TOL, chaos, obs, packed
+    ``.obs``, ``.chaos``, ``.tp`` and ``.quant`` recompute the
+    virtual-clock rows of ``BENCH_packed.json``, ``BENCH_obs.json``,
+    ``BENCH_chaos.json``, ``BENCH_tp.json`` and ``BENCH_quant.json`` with
+    their smoke models on the card (chaos, tp and quant assert their
+    claims inline: tokens identical at every fault rate, TP degree and
+    codec, among others); every value must equal the file's within
+    ``REL_TOL``.  Each check's kernel launches are counted and printed.
+    Then the obs-on / obs-off host wall-time ratio of the 2x open-loop run,
+    printed (host wall time, no part of the drift file)."""
+    from repro_torch.bench import REL_TOL, chaos, obs, packed, quant, tp
+    counters = _counters()
     for mod, name in ((packed, "BENCH_packed.json"), (obs, "BENCH_obs.json"),
-                      (chaos, "BENCH_chaos.json")):
+                      (chaos, "BENCH_chaos.json"), (tp, "BENCH_tp.json"),
+                      (quant, "BENCH_quant.json")):
+        for fn in counters.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         problems = mod.check_drift(os.path.join(ROOT, name), DEVICE)
+        counts = {k: fn.launches for k, fn in counters.items()}
         print(f"drift check {name} on the card (rel tol {REL_TOL:g}): "
               f"{'OK' if not problems else f'{len(problems)} values differ'}"
-              f" ({time.perf_counter() - t0:.1f} s)")
+              f" ({time.perf_counter() - t0:.1f} s; launches {counts})")
         for p in problems:
             print(f"  {p}")
         check(not problems, f"{name}: the port's recomputation on the card "
@@ -1651,6 +1674,389 @@ def phase_chaos(model) -> dict:
     return launches
 
 
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Two tensors of one dtype and shape equal bit for bit."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if want.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32}[want.element_size()]
+        return torch.equal(got.view(view), want.view(view))
+    return torch.equal(got, want)
+
+
+def _unflatten(tree, flat: dict, prefix: str = ""):
+    """``tree``'s structure with its leaves taken from ``flat`` by the
+    names ``models.model._flatten`` gives them."""
+    if isinstance(tree, dict):
+        return {k: _unflatten(v, flat, f"{prefix}{k}__")
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_unflatten(v, flat, f"{prefix}{i}__")
+                for i, v in enumerate(tree)]
+    return flat[prefix[:-2]]
+
+
+def _serve_sync(model, label: str) -> tuple:
+    """``MAIN``'s requests under the sync policy: (tokens by request,
+    launches by kernel, run wall seconds); launches must be as expected."""
+    from repro_torch.core.policy import SchedulingPolicy
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import SamplingParams
+    gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(1, model.cfg.vocab_size, (n,),
+                             generator=gen).tolist()
+               for n in MAIN["prompt_lens"]]
+    engine = ServingEngine(model, max_batch=MAIN["max_batch"],
+                           max_len=MAIN["max_len"],
+                           policy=SchedulingPolicy.SYNC_DRAIN, cc_on=True,
+                           seed=0, device=DEVICE)
+    for i, p in enumerate(prompts):
+        engine.submit(Request(f"r{i}", prompt=p, sampling=SamplingParams(
+            max_new_tokens=MAIN["new_tokens"])))
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        stats = engine.run()
+        torch.cuda.synchronize()
+    finally:
+        engine.close()
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in counters.items()}
+    want = dense_launches(model.cfg)(stats, len(prompts))
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    check(stats["finished"] == len(prompts), f"{label}: {stats['finished']} "
+          f"of {len(prompts)} requests finished")
+    return ({r.request_id: list(r.output_tokens) for r in engine.finished},
+            counts, wall)
+
+
+def _h2d_device_ms(fn, tries: int = 3) -> tuple:
+    """``fn`` under the profiler: the device time of its host-to-device
+    copies (ms) and how many there were, from the first of ``tries``
+    windows that saw any (a window now and then comes back empty; None
+    where every one did)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and "HtoD" in e.key:
+                us += getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0))
+                n += e.count
+        if n:
+            return us / 1e3, n
+    return None, 0
+
+
+def _host_memory() -> str:
+    """The host's total and available RAM, as /proc/meminfo gives them."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            info[key] = int(val.split()[0]) * 1024
+    return (f"host RAM {info['MemTotal']} bytes, available "
+            f"{info['MemAvailable']} bytes")
+
+
+def phase_loader(model) -> dict:
+    """Full-width ``model``'s own weights through the port's loader: written
+    with ``save_sharded`` (``LOADER["n_shards"]`` shards) into a temporary
+    directory under ``build/`` (removed at the end) and loaded back with
+    ``PooledLoader`` (B300 profile, CC on, ``LOADER["n_workers"]`` workers,
+    PREWARMED) into a recorded gateway on the card: every tensor bit-equal
+    to the model's, one LOADER_SHARD_H2D record a shard whose bytes sum to
+    the checkpoint's, a lawful tape, and the loaded model serving
+    ``MAIN``'s requests (sync) with the in-memory model's tokens.  Then
+    ``weight_quant="int8"`` (WEIGHT_SHARD_Q records, one DEQUANT_COMPUTE
+    charge, the same full-width tensors) and ``tp_degree=4`` (one
+    P2P_SHARD_EXCHANGE of 3/4 of the bytes, the TP=1 load's bridge bytes).
+    Measured: write and read walls, each load's wall (host clock, ending in
+    ``torch.cuda.synchronize()``) and the H2D device time of one more load
+    (profiler); the same tensors uploaded from pageable and from
+    page-locked host buffers (allocated outside the timed window); the
+    modelled breakdown of all six variants at this size.  Returns the
+    launches of the two serving runs, by kernel."""
+    import shutil
+    import tempfile
+    from repro_torch.core.bridge import B300, BridgeModel
+    from repro_torch.core.gateway import TransferGateway
+    from repro_torch.core.policy import cc_aware_defaults
+    from repro_torch.loader import (LoaderVariant, PooledLoader,
+                                    ShardedCheckpoint, save_sharded)
+    from repro_torch.models.model import Model, _flatten
+    from repro_torch.trace import TraceRecorder, check_tape
+    from repro_torch.trace import opclasses as oc
+
+    cfg = model.cfg
+    params = dict(_flatten(model.params))
+    p_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    n_shards, n_workers = LOADER["n_shards"], LOADER["n_workers"]
+    bridge = BridgeModel(B300, cc_on=True)
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="loader_ckpt_", dir=build)
+    launches = dict.fromkeys(_counters(), 0)
+    try:
+        disk = shutil.disk_usage(tmp)
+        print(f"loader host ({cfg.name}): disk at the checkpoint's directory "
+              f"{disk.free} bytes free of {disk.total}; {_host_memory()}; "
+              f"{os.cpu_count()} CPUs")
+        t0 = time.perf_counter()
+        save_sharded(tmp, params, n_shards=n_shards)
+        write_s = time.perf_counter() - t0
+        ckpt = ShardedCheckpoint(tmp)
+        total = ckpt.total_bytes()
+        check(total == p_bytes, f"loader: checkpoint holds {total} bytes, "
+                                f"the model {p_bytes}")
+        t0 = time.perf_counter()
+        host = [ckpt.read_tensor(name) for name in params]
+        read_s = time.perf_counter() - t0
+        print(f"loader checkpoint: {len(params)} tensors, {total} bytes in "
+              f"{n_shards} shards; write {write_s:.3f} s "
+              f"({total / write_s / 1e9:.3f} GB/s), read into host arrays "
+              f"{read_s:.3f} s ({total / read_s / 1e9:.3f} GB/s)")
+
+        def load(label, **kw):
+            gw = TransferGateway(bridge, cc_aware_defaults(True),
+                                 pool_workers=n_workers, device=DEVICE)
+            loader = PooledLoader(bridge, n_workers=n_workers, gateway=gw,
+                                  weight_quant=kw.pop("weight_quant", ""))
+            recorder = TraceRecorder(gw, label=f"loader-{label}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with recorder:
+                tensors, bd = loader.load(ckpt, LoaderVariant.PREWARMED,
+                                          device=DEVICE, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tape = recorder.tape()
+            report = check_tape(tape)
+            check(report.ok, f"loader {label}: tape violates the bridge "
+                             f"law:\n{report.format()}")
+            bad = [n for n, t in params.items()
+                   if not _same_bits(tensors[n], t)]
+            check(not bad, f"loader {label}: {len(bad)} tensors differ from "
+                           f"the model's (first {bad[:3]})")
+            parts = {k: v for k, v in bd.items() if k != "total"}
+            print(f"loader {label}: {len(tensors)} tensors bit-equal to the "
+                  f"model's; wall {wall:.4f} s = "
+                  f"{total / wall / 1e9:.3f} GB/s (reads + pageable "
+                  f"uploads); modelled (virtual clock, B300, CC on) "
+                  f"{bd['total']!r} s {parts}; tape ok, bridge bytes "
+                  f"{tape.bridge_bytes()}, p2p bytes {tape.p2p_bytes()}, "
+                  f"records {tape.op_class_mix()}")
+            return tensors, tape, wall
+
+        tensors, tape1, wall1 = load("full width")
+        shards = [r for r in tape1.records
+                  if r.op_class == oc.LOADER_SHARD_H2D]
+        check(len(shards) == n_shards
+              and sum(r.nbytes for r in shards) == total,
+              f"loader: {len(shards)} shard records of "
+              f"{sum(r.nbytes for r in shards)} bytes, expected {n_shards} "
+              f"of {total}")
+        loaded = Model(cfg, params=_unflatten(model.params, tensors),
+                       device=DEVICE)
+        want, counts, wall_mem = _serve_sync(model, "loader, in-memory model")
+        got, more, wall_ld = _serve_sync(loaded, "loader, loaded model")
+        for c in (counts, more):
+            for k, n in c.items():
+                launches[k] += n
+        check(got == want, "loader: the loaded model's tokens differ from "
+                           "the in-memory model's")
+        print(f"loader serving: the loaded model's {len(got)} requests "
+              f"(sync, {MAIN['new_tokens']} new tokens each) give the "
+              f"in-memory model's tokens; launches {more} a run; walls "
+              f"{wall_mem:.3f} s in memory, {wall_ld:.3f} s loaded")
+        del loaded, tensors
+
+        tensors, tape_q, _ = load("int8 weight-only", weight_quant="int8")
+        q = [r for r in tape_q.records if r.op_class == oc.WEIGHT_SHARD_Q]
+        dq = [r for r in tape_q.records if r.op_class == oc.DEQUANT_COMPUTE]
+        check(len(q) == n_shards and len(dq) == 1
+              and all(oc.QUANTIZED in r.tags for r in q),
+              f"loader int8: {len(q)} WEIGHT_SHARD_Q records, {len(dq)} "
+              f"DEQUANT_COMPUTE charges")
+        del tensors
+        tensors, tape_tp, _ = load("tp_degree=4", tp_degree=4)
+        ex = [r for r in tape_tp.records
+              if r.op_class == oc.P2P_SHARD_EXCHANGE]
+        check(len(ex) == 1 and ex[0].nbytes == int(total * 3 / 4)
+              and tape_tp.bridge_bytes() == tape1.bridge_bytes(),
+              f"loader tp=4: exchange {[r.nbytes for r in ex]} (expected "
+              f"{int(total * 3 / 4)}), bridge bytes "
+              f"{tape_tp.bridge_bytes()} vs {tape1.bridge_bytes()}")
+        del tensors
+        torch.cuda.empty_cache()
+
+        plain = PooledLoader(bridge, n_workers=n_workers)
+        h2d_ms, h2d_n = _h2d_device_ms(lambda: plain.load(
+            ckpt, LoaderVariant.PREWARMED, device=DEVICE))
+        print(f"loader H2D (one more full-width load, profiler): "
+              f"{_ms(h2d_ms)} over {h2d_n} copies"
+              + ("" if h2d_ms is None else
+                 f" = {total / h2d_ms / 1e6:.3f} GB/s of device time"))
+
+        pageable = [torch.from_numpy(a) for a in host]
+        pinned = [t.pin_memory() for t in pageable]
+        walls = {"pageable": [], "pinned": []}
+        for name in ("pageable", "pinned", "pinned", "pageable"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = [t.to(DEVICE, non_blocking=True)
+                   for t in (pinned if name == "pinned" else pageable)]
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            del out
+        device_ms = {name: _h2d_device_ms(lambda: [
+            t.to(DEVICE, non_blocking=True) for t in arrays])
+            for name, arrays in (("pageable", pageable), ("pinned", pinned))}
+        print("loader uploads of the same tensors from host memory (in "
+              "turns pageable, pinned, pinned, pageable; page-locked buffers "
+              "allocated outside the window): " + "; ".join(
+                  f"{name} {min(w):.4f} s = {total / min(w) / 1e9:.3f} GB/s "
+                  f"(walls {[round(x, 4) for x in w]}; one more under the "
+                  f"profiler: H2D {_ms(device_ms[name][0])} over "
+                  f"{device_ms[name][1]} copies)"
+                  for name, w in walls.items())
+              + f"; the loader's full-width load {wall1:.4f} s = "
+              f"{total / wall1 / 1e9:.3f} GB/s with its reads")
+        del pageable, pinned, host
+        print(f"loader modelled ladder ({total} bytes, {n_shards} shards, "
+              f"{n_workers} workers, B300, CC on; virtual clock): " + "; ".join(
+                  f"{v.value} {plain.modeled_load_time(total, n_shards, v)['total']!r} s"
+                  for v in LoaderVariant))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def phase_tp(model) -> dict:
+    """Full-width ``model`` behind a one-replica confidential cluster at TP
+    1, 2, 4 and 8 (``TP``): ``benchmarks/bench_tp.py``'s guardrail shape at
+    full width (8 greedy requests sharing a prompt, each with tokens of its
+    own).  TP is pricing only and one card runs the whole model, so: tokens
+    identical across degrees, the same bridge bytes, P2P bytes only above
+    TP=1 and there one P2P_ALLREDUCE a decode step (the replica prices
+    prompts itself, so no engine prefill owes one), no fallbacks, lawful
+    tapes with stall closure >= 0.99, flash and paged launches as
+    expected.  Returns the launches of the four runs, by kernel."""
+    from repro_torch.cluster import ReplicaConfig, RoutingPolicy, build_cluster
+    from repro_torch.obs import attribute_stalls
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.sampler import SamplingParams
+    from repro_torch.trace import check_tape
+    from repro_torch.trace import opclasses as oc
+
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(5)
+    shared = torch.randint(1, cfg.vocab_size, (TP["prompt_len"],),
+                           generator=gen).tolist()
+    kv_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+                * torch.finfo(cfg.dtype).bits // 8)
+    decode_classes = (oc.DECODE_PACKED, oc.DECODE_COMPUTE, oc.DECODE_MASKED)
+    launches = dict.fromkeys(_counters(), 0)
+    runs = {}
+    for tp in TP["degrees"]:
+        cluster = build_cluster(
+            model, cc_on=True, n_replicas=1,
+            partition_size=TP["partition_size"],
+            routing=RoutingPolicy.LEAST_LOADED, seed=0,
+            replica_cfg=ReplicaConfig(
+                tp_degree=tp, max_batch=TP["max_batch"],
+                max_len=TP["max_len"], block_tokens=TP["block_tokens"],
+                n_pages=TP["n_pages"], kv_bytes_per_token=kv_bytes))
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            for i in range(TP["n_requests"]):
+                check(cluster.submit(Request(
+                    f"r{i}", prompt=shared + [40 + i] * TP["own_len"],
+                    sampling=SamplingParams(
+                        max_new_tokens=TP["new_tokens"] + i % 4)))
+                    is not None, f"tp={tp}: the cluster shed r{i}")
+            cluster.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {name: fn.launches for name, fn in counters.items()}
+            replica = cluster.replicas[0]
+            tape = replica.tape()
+            report = check_tape(tape)
+            check(report.ok, f"tp={tp}: tape violates the bridge law:\n"
+                             f"{report.format()}")
+            mix = tape.op_class_mix()
+            steps = replica.engine.step_count
+            prefills = sum(1 + e["request"].restarts
+                           for e in cluster.request_log)
+            r = dict(
+                tokens={e["request"].request_id:
+                        tuple(e["request"].output_tokens)
+                        for e in cluster.request_log},
+                finished=len(replica.engine.finished),
+                virtual_s=replica.clock.now, counts=counts,
+                bridge=tape.bridge_bytes(), p2p=tape.p2p_bytes(),
+                p2p_s=tape.p2p_seconds(),
+                allreduce=mix.get(oc.P2P_ALLREDUCE, 0),
+                decode=sum(mix.get(c, 0) for c in decode_classes),
+                fallbacks=replica.gateway.stats.p2p_fallback_crossings,
+                closure=attribute_stalls(tape).closure,
+                expected={"flash_attention": prefills * cfg.n_layers,
+                          "paged_attention": steps * cfg.n_layers,
+                          "mlstm_scan": 0, "dequant": 0})
+        finally:
+            cluster.close()
+        runs[tp] = r
+        for k, n in counts.items():
+            launches[k] += n
+        print(f"tp={tp} ({cfg.name}, one replica, partition "
+              f"{TP['partition_size']}): {r['finished']} of "
+              f"{TP['n_requests']} requests, {steps} decode steps; modelled "
+              f"virtual time {r['virtual_s']!r} s, P2P {r['p2p']} bytes in "
+              f"{r['p2p_s']!r} s ({r['allreduce']} allreduce records for "
+              f"{r['decode']} decode steps), bridge {r['bridge']} bytes, "
+              f"fallbacks {r['fallbacks']}, stall closure "
+              f"{r['closure']:.6f}; launches flash "
+              f"{counts['flash_attention']} paged "
+              f"{counts['paged_attention']} (expected "
+              f"{r['expected']['flash_attention']} / "
+              f"{r['expected']['paged_attention']}); wall {wall:.3f} s")
+        check(r["finished"] == TP["n_requests"], f"tp={tp}: requests lost")
+        check(counts == r["expected"], f"tp={tp}: launches {counts}, "
+                                       f"expected {r['expected']}")
+        check(r["closure"] >= 0.99, f"tp={tp}: stall closure {r['closure']}")
+        check(r["fallbacks"] == 0, f"tp={tp}: {r['fallbacks']} fallbacks")
+        if tp == 1:
+            check(r["p2p"] == 0 and r["allreduce"] == 0,
+                  "tp=1 emitted P2P traffic")
+        else:
+            check(r["p2p"] > 0 and r["allreduce"] == r["decode"] > 0,
+                  f"tp={tp}: {r['allreduce']} allreduce records for "
+                  f"{r['decode']} decode steps, {r['p2p']} P2P bytes")
+    base = runs[TP["degrees"][0]]
+    check(all(r["tokens"] == base["tokens"] for r in runs.values()),
+          "tp: token streams differ between degrees")
+    check(len({r["bridge"] for r in runs.values()}) == 1,
+          "tp: bridge bytes differ between degrees")
+    print(f"tp token criterion: tokens identical across TP "
+          f"{list(TP['degrees'])}; bridge bytes {base['bridge']} at every "
+          f"degree; modelled virtual time "
+          + ", ".join(f"tp={tp} {r['virtual_s']!r} s"
+                      for tp, r in runs.items()))
+    return launches
+
+
 def mlstm_work(b, s, h, dk, dv, chunk) -> tuple:
     """Operations and bytes a chunked mLSTM scan from the empty state needs
     on these shapes (f32 inputs).  Per chunk of L steps and head: the
@@ -1981,7 +2387,7 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
 
 def _time_layouts(gen) -> dict:
     """The flash and paged kernels at the head layouts of qwen1.5-4b (H20
-    KV20) and qwen3-32b (H64 KV8), D=128, beside SDPA (device time per
+    KV20), qwen3p6-27b (H40 KV8) and qwen3-32b (H64 KV8), D=128, beside SDPA (device time per
     call, in turns) and their bounds: flash at S=512 causal, B=1; paged at
     the main path's decode shape (8 slots of a 1024-token cache, lengths =
     prompt + 16, one layer's cache: the timing line of the olmo-1b shape
@@ -1994,7 +2400,8 @@ def _time_layouts(gen) -> dict:
     cap = pages_max * page
     lengths = [n + 16 for n in MAIN["prompt_lens"]]
     out = {}
-    for arch, h, kv in (("qwen1.5-4b", 20, 20), ("qwen3-32b", 64, 8)):
+    for arch, h, kv in (("qwen1.5-4b", 20, 20), ("qwen3p6-27b", 40, 8),
+                        ("qwen3-32b", 64, 8)):
         s = max(MAIN["prompt_lens"])
         q, k, v = (_randn(gen, 1, s, n, d) for n in (h, kv, kv))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -2335,8 +2742,9 @@ def main() -> None:
     launches = phase_main(model, dense_launches(model.cfg))
     phase_profile(model)
     launches["dequant"] += phase_restore(model)
-    more = phase_chaos(model)
-    launches = {k: n + more[k] for k, n in launches.items()}
+    for phase in (phase_chaos, phase_loader, phase_tp):
+        more = phase(model)
+        launches = {k: n + more[k] for k, n in launches.items()}
     del model
     torch.cuda.empty_cache()
 
@@ -2365,14 +2773,16 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches = {k: n + x_launches[k] for k, n in launches.items()}
 
-    # qwen1.5-4b (MHA, QKV bias, untied) and qwen3-32b (GQA 64/8, qk_norm;
-    # 65.5 GB of weights): the flash and paged kernels at their head layouts
-    for arch in ("qwen1.5-4b", "qwen3-32b"):
+    # qwen1.5-4b (MHA, QKV bias, untied), qwen3p6-27b (the paper's own
+    # serving workload: GQA 40/8, qk_norm; ~39 GB of weights) and qwen3-32b
+    # (GQA 64/8, qk_norm; 65.5 GB): the flash and paged kernels at their
+    # head layouts; each is freed before the next is drawn
+    for arch in ("qwen1.5-4b", "qwen3p6-27b", "qwen3-32b"):
         model = init_dense(arch)
         phase_model_check(model)
         more = phase_main(model, dense_launches(model.cfg))
         launches = {k: n + more[k] for k, n in launches.items()}
-        if arch == "qwen3-32b":
+        if arch != "qwen1.5-4b":
             phase_profile(model)
         print(f"{arch}: peak allocated over its phases "
               f"{torch.cuda.max_memory_allocated()} bytes")

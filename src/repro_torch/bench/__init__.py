@@ -4,6 +4,8 @@ repository's ``BENCH_*.json`` files and compares it with the file.
     PYTHONPATH=src python -m repro_torch.bench.packed --check [PATH] [--device cpu]
     PYTHONPATH=src python -m repro_torch.bench.obs --check [PATH] [--device cpu]
     PYTHONPATH=src python -m repro_torch.bench.chaos --check [PATH] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.bench.tp --check [PATH] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.bench.quant --check [PATH] [--device cpu]
 
 ``--check`` reads the file at the repository's root unless given a path,
 prints ``<file>: OK`` or every value that differs, and exits 1 on a
@@ -45,6 +47,27 @@ def diff_rows(kind: str, gold: list, fresh: list, keyfields: tuple,
             ok = close(val, gv) if isinstance(val, float) else val == gv
             if not ok:
                 problems.append(f"{kind} {label} {key}: {gv!r} -> {val!r}")
+
+
+def diff_tree(kind: str, gold, fresh, problems: list) -> None:
+    """Append to ``problems`` every leaf of the nested dicts and lists
+    ``fresh`` that differs from ``gold``'s (floats within ``REL_TOL``, the
+    rest exactly)."""
+    if isinstance(fresh, dict):
+        for key, val in fresh.items():
+            diff_tree(f"{kind}.{key}", (gold or {}).get(key), val, problems)
+        return
+    if isinstance(fresh, list):
+        if not isinstance(gold, list) or len(gold) != len(fresh):
+            problems.append(f"{kind} shape changed")
+            return
+        for i, (g, f_) in enumerate(zip(gold, fresh)):
+            diff_tree(f"{kind}[{i}]", g, f_, problems)
+        return
+    ok = (close(fresh, gold) if isinstance(fresh, float)
+          and isinstance(gold, float) else fresh == gold)
+    if not ok:
+        problems.append(f"{kind}: {gold!r} -> {fresh!r}")
 
 
 def load(path: str) -> dict:

@@ -36,8 +36,9 @@ from .policy import RuntimeDefaults, SchedulingPolicy
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """The real upload: a host array copied onto ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    """The real upload: a host array copied onto ``device`` (its shape kept:
+    ``np.ascontiguousarray`` would make a 0-d array 1-d)."""
+    return torch.from_numpy(np.asarray(arr, order="C")).to(device)
 
 
 def _nbytes(x: Any) -> int:

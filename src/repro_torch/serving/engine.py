@@ -33,9 +33,12 @@ Differences from the reference:
     staging goes through a ``StagingArena`` and sub-threshold crossings
     through a ``CrossingCoalescer``, as in the reference; the tensors a
     coalesced upload returns are real uploads, so the model still reads
-    what crossed;
-  * tensor-parallel pricing is not ported yet: a compute model that asks
-    for it raises ``NotImplementedError``.
+    what crossed.
+
+Tensor parallelism is pricing only, as in the reference: a compute model
+with ``tp_degree > 1`` adds each step's fabric allreduce to the clock
+(``_charge_allreduce``) while one device runs the whole model, so token
+streams are identical at every degree.
 """
 
 from __future__ import annotations
@@ -150,11 +153,6 @@ class ServingEngine:
         self.compute = compute_model or (
             ComputeModel(self.cfg, self.bridge)
             if self.defaults.charge_compute else None)
-        if self.compute is not None and self.compute.tp_degree != 1:
-            raise NotImplementedError(
-                "tensor-parallel compute pricing (the per-step fabric "
-                "allreduce) is not ported to PyTorch yet (ROADMAP.md, "
-                "Queue 1 item 3)")
         #: restore-aware scheduling: barrier is law, preference is a flag
         self.overlap = OverlapScheduler(
             self.clock, self.gateway.pool,
@@ -297,6 +295,9 @@ class ServingEngine:
                     charge.seconds, op_class=oc.PREFILL_COMPUTE,
                     bound=charge.bound)
                 self._poll()            # prefill compute moved the clock
+                # TP prefill allreduces over the prompt's activations (the
+                # per-token payload is the same shape as a decode batch row)
+                self._charge_allreduce(cold)
         self._insert_slot_cache(pre_cache, slot)
         first = sample(logits, self.generator, req.sampling)
         first_host = up.d2h(first, op_class=oc.SAMPLE_D2H)
@@ -376,6 +377,29 @@ class ServingEngine:
         if (self.coalescer is not None
                 and self.coalescer.bypass != ladder.coalescer_bypassed):
             self.coalescer.set_bypass(ladder.coalescer_bypassed)
+
+    # -- tensor-parallel allreduce -------------------------------------------------------
+
+    def _charge_allreduce(self, batch: int) -> None:
+        """Charge one step's TP ring allreduce over the tenant fabric.
+
+        Only a TP>1 compute model owes one (a single-device replica has
+        nothing to reduce, so TP=1 tapes carry no such record).  The bytes
+        ride ``gateway.p2p``: kind="p2p", priced at the fabric rate (or the
+        TCP fallback for a stale or unattested tenant), never the bridge.
+        Execution is untouched: one device runs the whole model, which is
+        why TP token streams are identical to TP=1's.
+        """
+        if self.compute is None or self.compute.tp_degree == 1:
+            return
+        nbytes = self.compute.allreduce_bytes(batch)
+        if nbytes == 0:
+            return
+        # per-device clock skew: the ring closes when the slowest device
+        # arrives, so the skew spread rides the p2p charge as extra seconds
+        self.gateway.p2p(nbytes, op_class=oc.P2P_ALLREDUCE,
+                         extra_s=self.compute.allreduce_skew_s())
+        self._poll()            # the allreduce moved the clock
 
     # -- the decode step under each policy ------------------------------------------------
 
@@ -467,6 +491,7 @@ class ServingEngine:
                     charge.seconds, op_class=oc.DECODE_COMPUTE,
                     tags=self._degraded_tags(),
                     bound=charge.bound)
+            self._charge_allreduce(len(ready))
         # batch sampling params come from the lowest resident slot
         next_tokens = sample(logits, self.generator,
                              self.active[slots[0]].sampling)
@@ -519,6 +544,8 @@ class ServingEngine:
                 tags=(oc.PACKED,) + (oc.DEFERRED,) * len(deferred)
                 + self._degraded_tags(),
                 bound=charge.bound)
+            # on the packed rows, the reference's unpadded count
+            self._charge_allreduce(n)
         next_tokens = sample(logits, self.generator,
                              self.active[slots[0]].sampling)
         host_tokens = self._drain(next_tokens)

@@ -151,8 +151,9 @@ class RaggedBatch:
     """One packed decode step's ready set: slot ids + per-slot KV lengths.
 
     No padding anywhere: ``size`` is exactly the number of rows the forward
-    executes and ``kv_lens`` are the per-slot prefix depths the pricing
-    reads (``ComputeModel.decode_charge_packed``).  Slots keep engine order
+    executes, ``kv_lens`` are the per-slot prefix depths the pricing reads
+    (``ComputeModel.decode_charge_packed``), and ``total_kv_tokens`` is the
+    step's KV read traffic in tokens.  Slots keep engine order
     (ascending), so row ``i`` of the packed batch is slot ``slots[i]`` — the
     in-place cache write and the per-row token drain both key on that.
     """
@@ -175,6 +176,16 @@ class RaggedBatch:
     @property
     def size(self) -> int:
         return len(self.slots)
+
+    @property
+    def total_kv_tokens(self) -> int:
+        return int(sum(self.kv_lens))
+
+    def offsets(self) -> np.ndarray:
+        """CSR-style (size+1,) cumulative KV offsets of the packed rows."""
+        out = np.zeros(self.size + 1, np.int64)
+        np.cumsum(np.asarray(self.kv_lens, np.int64), out=out[1:])
+        return out
 
     def slot_array(self) -> np.ndarray:
         return np.asarray(self.slots, np.int32)

@@ -11,9 +11,10 @@ tapes, stats and greedy tokens must be equal:
     unquantized, the codec's decode of the spilled codes quantized;
   * the smoke-width engine with ``cc_aware_defaults(True, bridge_opt=True)``
     under sync/async/worker, weights carried across by ``convert.py``;
-  * ``benchmarks/bench_quant.py``'s restore and bulk-replay shapes, which
-    must reproduce ``BENCH_quant.json``'s ``restore`` and ``replay``
-    sections to its ``REL_TOL``;
+  * ``benchmarks/bench_quant.py``'s restore and bulk-replay shapes, run by
+    the port's benchmark module ``repro_torch.bench.quant``, which must
+    reproduce ``BENCH_quant.json``'s ``restore`` and ``replay`` sections
+    to its ``REL_TOL``;
   * a real-payload round trip of the smoke engine's own KV rows.
 """
 
@@ -48,6 +49,7 @@ from repro.serving.offload import OffloadManager as JOffload
 from repro.serving.sampler import SamplingParams as JSampling
 from repro.trace import TraceRecorder as JRecorder
 from repro.trace import ReplaySpec as JSpec, TraceReplayer as JReplayer
+from repro_torch.bench import quant as port_quant
 from repro_torch.bridge_opt import (CrossingCoalescer, StagingArena,
                                     pipelined_h2d)
 from repro_torch.configs.base import get_config, smoke_config as t_smoke
@@ -61,7 +63,7 @@ from repro_torch.kernels.dequant import ops as dq_ops
 from repro_torch.models.model import Model
 from repro_torch.quant import get_codec, split_wire
 from repro_torch.serving.engine import Request, ServingEngine
-from repro_torch.serving.offload import HostBlock, OffloadManager
+from repro_torch.serving.offload import OffloadManager
 from repro_torch.serving.sampler import SamplingParams
 from repro_torch.trace import (ReplaySpec, TraceRecorder, TraceReplayer,
                                check_tape)
@@ -435,101 +437,16 @@ def test_bridge_opt_engine_matches_reference(shared, policy):
 # benchmarks/bench_quant.py's shapes on the port
 # ---------------------------------------------------------------------------------
 
-def _port_run_restore(model, kv_quant: str) -> dict:
-    """``bench_quant.run_restore`` through the port, step for step."""
-    bridge = BridgeModel(B300, cc_on=True)
-    defaults = dataclasses.replace(
-        cc_aware_defaults(True), scheduling=SchedulingPolicy.SYNC_DRAIN,
-        loader_pool_workers=8, pipelined_restore=True,
-        slot_masked_decode=True, kv_quant=kv_quant)
-    compute = ComputeModel(get_config(bench_quant.PAPER_MODEL), bridge)
-    engine = ServingEngine(model, max_batch=4, max_len=64,
-                           policy=SchedulingPolicy.SYNC_DRAIN, bridge=bridge,
-                           defaults=defaults, compute_model=compute, seed=0,
-                           device="cpu")
-    gw = engine.gateway
-    gw.pool.prewarm()
-    engine.submit(Request("r0", prompt=list(bench_quant.PROMPT),
-                          sampling=SamplingParams(
-                              max_new_tokens=bench_quant.LONG_TOKENS)))
-    for i in range(1, 4):
-        engine.submit(Request(f"r{i}", prompt=list(bench_quant.PROMPT),
-                              sampling=SamplingParams(
-                                  max_new_tokens=bench_quant.SHORT_TOKENS)))
-    engine.step()
-    mgr = OffloadManager(gw, OffloadPolicy.REUSE_AWARE,
-                         pipelined_restore=True,
-                         restore_chunk_bytes=bench_quant.CHUNK_BYTES,
-                         kv_quant=kv_quant, compute_model=compute)
-    wire = (bench_quant.quant_wire(bench_quant.BLOCK_BYTES, itemsize=2)
-            if kv_quant else 0)
-    for b in range(bench_quant.RESTORE_BLOCKS):
-        mgr.host_store[b] = HostBlock(b, bench_quant.BLOCK_BYTES, 2, None,
-                                      wire_bytes=wire, codec=kv_quant)
-    mgr.on_restore_done.append(engine.mark_restore)
-    recorder = TraceRecorder(gw, policy="sync_drain",
-                             label=f"quant-restore-{kv_quant or 'bf16'}"
-                             ).attach()
-    try:
-        mgr.restore(list(range(bench_quant.RESTORE_BLOCKS)), key="r0")
-        stats = engine.run()
-        tape = recorder.tape()
-    finally:
-        recorder.detach()
-        engine.close()
-    restore = [r for r in tape.records if r.kind == "crossing"
-               and r.op_class in bench_quant._RESTORE_CLASSES]
-    return {
-        "kv_quant": kv_quant or "bf16",
-        "tok_s": stats["total_tokens"] / max(stats["virtual_time_s"], 1e-12),
-        "virtual_time_s": stats["virtual_time_s"],
-        "restore_wire_bytes": sum(r.nbytes for r in restore),
-        "restore_raw_bytes": sum(r.raw_bytes or r.nbytes for r in restore),
-        "dequant_s": sum(r.t_end - r.t_start for r in tape.records
-                         if r.op_class == oc.DEQUANT_COMPUTE),
-        "tokens": {r.request_id: list(r.output_tokens)
-                   for r in engine.finished},
-        "conformance_ok": check_tape(tape).ok,
-    }
-
-
-def _port_run_bulk(kv_quant: str):
-    bridge = BridgeModel(B300, cc_on=True)
-    gw = TransferGateway(bridge, cc_aware_defaults(True), pool_workers=1,
-                         device="cpu")
-    compute = ComputeModel(get_config(bench_quant.PAPER_MODEL), bridge)
-    with TraceRecorder(gw, policy="sync_drain",
-                       label=f"quant-bulk-{kv_quant or 'bf16'}") as recorder:
-        mgr = OffloadManager(gw, OffloadPolicy.SPILL_ALL, kv_quant=kv_quant,
-                             compute_model=compute)
-        for b in range(bench_quant.BULK_BLOCKS):
-            mgr.evict(b, payload_bytes=bench_quant.BULK_BLOCK_BYTES)
-        mgr.restore(list(range(bench_quant.BULK_BLOCKS)), key="bulk")
-    return recorder.tape(), gw.stats.bridge_time_s
-
-
-def _port_replay_gate() -> dict:
-    full_tape, full_recorded_s = _port_run_bulk("")
-    fp8_tape, fp8_recorded_s = _port_run_bulk("fp8")
-    assert check_tape(full_tape).ok and check_tape(fp8_tape).ok
-    full_asrec = TraceReplayer(full_tape).reprice(
-        ReplaySpec()).total_replayed_s
-    unquant = TraceReplayer(fp8_tape).reprice(
-        ReplaySpec(quantize="")).total_replayed_s
-    forced = TraceReplayer(full_tape).reprice(
-        ReplaySpec(quantize="fp8")).total_replayed_s
-    return {
-        "full_recorded_s": full_recorded_s,
-        "fp8_recorded_s": fp8_recorded_s,
-        "full_asrec_replay_s": full_asrec,
-        "unquant_replay_s": unquant,
-        "forced_fp8_replay_s": forced,
-        "unquant_rel_err": abs(unquant - full_asrec) / full_asrec,
-        "fp8_byte_ratio": (fp8_tape.bridge_bytes()
-                           / fp8_tape.bridge_raw_bytes()),
-        "fp8_bridge_bytes": fp8_tape.bridge_bytes(),
-        "full_bridge_bytes": full_tape.bridge_bytes(),
-    }
+def test_port_bench_runs_the_references_shapes():
+    """``repro_torch.bench.quant`` (which the tests below drive) runs
+    ``bench_quant``'s workloads: every shape constant is the reference's."""
+    for name in ("PAPER_MODEL", "PROMPT", "SHORT_TOKENS", "LONG_TOKENS",
+                 "RESTORE_BLOCKS", "BLOCK_BYTES", "CHUNK_BYTES",
+                 "BULK_BLOCKS", "BULK_BLOCK_BYTES", "LOADER_TENSORS",
+                 "LOADER_SHAPE", "LOADER_SHARDS", "FP8_BYTE_RATIO_MAX",
+                 "REPLAY_REL_ERR_MAX"):
+        assert getattr(port_quant, name) == getattr(bench_quant, name), name
+    assert port_quant.RESTORE_CLASSES == bench_quant._RESTORE_CLASSES
 
 
 def _drift(gold, fresh) -> list:
@@ -546,7 +463,8 @@ def _golden() -> dict:
 def test_port_reproduces_bench_quant_restore():
     from repro_torch.trace.harness import smoke_model
     model = smoke_model(device="cpu")
-    restore = [_port_run_restore(model, ""), _port_run_restore(model, "fp8")]
+    restore = [port_quant.run_restore(model, ""),
+               port_quant.run_restore(model, "fp8")]
     tokens = [r.pop("tokens") for r in restore]
     assert tokens[0] == tokens[1] and len(tokens[0]) == 4
     golden = _golden()
@@ -555,13 +473,13 @@ def test_port_reproduces_bench_quant_restore():
 
 
 def test_port_reproduces_bench_quant_replay_gate():
-    assert _drift(_golden()["replay"], _port_replay_gate()) == []
+    assert _drift(_golden()["replay"], port_quant.replay_gate("cpu")) == []
 
 
 @pytest.mark.parametrize("lever", ["", "int8", "fp8"])
 def test_quantize_lever_reprices_as_the_reference(lever):
     for kv_quant in ("", "int8"):
-        tape, _ = _port_run_bulk(kv_quant)
+        tape, _ = port_quant.run_bulk(kv_quant, "cpu")
         jtape = bench_quant.run_bulk(kv_quant)[0]
         assert [r.to_dict() for r in tape.records] == \
             [r.to_dict() for r in jtape.records]

@@ -603,6 +603,14 @@ class TestClusterEndToEnd:
         cluster.close()
 
     def test_tensor_parallel_replica_is_not_ported(self, tiny_model):
-        with pytest.raises(NotImplementedError, match="tensor-parallel"):
-            build_cluster(tiny_model, n_replicas=1,
-                          replica_cfg=ReplicaConfig(tp_degree=2))
+        """TP replicas are ported now (pricing only): a TP=2 replica serves
+        and charges its allreduces; a degree over the partition raises."""
+        cluster = build_cluster(tiny_model, n_replicas=1,
+                                replica_cfg=ReplicaConfig(tp_degree=2))
+        assert cluster.submit(_req("r0", list(range(1, 17)), 3))
+        assert cluster.run()["finished"] == 1
+        assert cluster.replicas[0].stats()["p2p_bytes"] > 0
+        cluster.close()
+        with pytest.raises(ValueError, match="does not fit partition_size"):
+            build_cluster(tiny_model, n_replicas=1, partition_size=2,
+                          replica_cfg=ReplicaConfig(tp_degree=4))

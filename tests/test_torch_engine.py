@@ -251,11 +251,27 @@ def test_bridge_opt_knobs_raise(shared, knob):
 
 
 def test_tensor_parallel_pricing_raises(shared):
+    """TP pricing is ported: an engine takes a TP=2 compute model and
+    charges a fabric allreduce per decode step without changing tokens;
+    only a degree below 1 raises."""
     from repro_torch.core.compute import ComputeModel
     _, _, model = shared
-    tp2 = ComputeModel(model.cfg, BridgeModel(B300, cc_on=True), tp_degree=2)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        ServingEngine(model, compute_model=tp2, device="cpu")
+    bridge = BridgeModel(B300, cc_on=True)
+    with pytest.raises(ValueError, match="tp_degree"):
+        ComputeModel(model.cfg, bridge, tp_degree=0)
+    out = {}
+    for tp in (1, 2):
+        engine = ServingEngine(
+            model, bridge=bridge, device="cpu",
+            compute_model=ComputeModel(model.cfg, bridge, tp_degree=tp))
+        engine.submit(Request("r0", prompt=[1, 2, 3],
+                              sampling=SamplingParams(max_new_tokens=4)))
+        stats = engine.run()
+        engine.close()
+        out[tp] = (engine.finished[0].output_tokens,
+                   engine.gateway.stats.p2p_crossings, stats["steps"])
+    assert out[1][0] == out[2][0]
+    assert out[1][1] == 0 and out[2][1] == 1 + out[2][2]
 
 
 def test_launcher_runs_on_cpu(capsys):

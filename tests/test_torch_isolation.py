@@ -1,9 +1,10 @@
 """The port stands alone: it imports neither JAX nor the reference package.
 
 A subprocess imports every module of ``repro_torch`` and ``chip_smoke``
-(whose work runs only under ``__main__``) and then finds no ``jax*`` and no
-``repro`` / ``repro.*`` module loaded; a static scan of the sources finds
-no such import either.
+(whose work runs only under ``__main__``) and then finds no ``jax*``, no
+``ml_dtypes`` and no ``repro`` / ``repro.*`` module loaded; a static scan
+of the sources finds no such import either, and none of ``ml_dtypes`` in
+the loader, which reads bf16 checkpoints as uint16 bits.
 """
 
 import json
@@ -38,7 +39,8 @@ for name in mods:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "repro" or m.startswith("repro."))
+             or m == "repro" or m.startswith("repro.")
+             or m == "ml_dtypes" or m.startswith("ml_dtypes."))
 print(json.dumps({"modules": mods, "bad": bad}))
 """
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -77,7 +79,10 @@ print(json.dumps({"modules": mods, "bad": bad}))
                  "repro_torch.cluster.tenant_manager",
                  "repro_torch.cluster.replica",
                  "repro_torch.cluster.autoscaler",
-                 "repro_torch.cluster.router", "repro_torch.bench.chaos"):
+                 "repro_torch.cluster.router", "repro_torch.bench.chaos",
+                 "repro_torch.loader", "repro_torch.loader.sharded_weights",
+                 "repro_torch.loader.pooled_loader",
+                 "repro_torch.bench.tp", "repro_torch.bench.quant"):
         assert name in result["modules"]
     assert result["bad"] == []
 
@@ -93,3 +98,19 @@ def test_no_jax_or_reference_import_in_source(path):
     with open(path) as f:
         text = f.read()
     assert IMPORT_RE.findall(text) == []
+
+
+LOADER_IMPORT_RE = re.compile(
+    r"^\s*(import|from)\s+(jax|ml_dtypes|repro)(\.(?!_)|\s|$)",
+    re.MULTILINE)
+
+
+@pytest.mark.parametrize("name", ["__init__.py", "sharded_weights.py",
+                                  "pooled_loader.py"])
+def test_loader_reads_bf16_without_ml_dtypes(name):
+    """The loader names bf16 "bfloat16" as the reference does but reads and
+    writes its bits as uint16: no ``jax``, ``ml_dtypes`` or ``repro.``
+    import in ``repro_torch/loader``."""
+    with open(os.path.join(PKG, "loader", name)) as f:
+        text = f.read()
+    assert LOADER_IMPORT_RE.findall(text) == []
