@@ -4,8 +4,11 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with
 nvcc (sm_90a), holds each kernel to its plain PyTorch version on the card,
-serves full-width olmo-1b, xlstm-1.3b, qwen1.5-4b, qwen3p6-27b and
-qwen3-32b (random weights from a seed) through the port's
+serves full-width olmo-1b, xlstm-1.3b, qwen1.5-4b, qwen3p6-27b,
+qwen3-32b, hymba-1.5b (hybrid attention + Mamba-2 heads, sliding
+windows; again with prompts past the window, through its ring caches),
+deepseek-moe-16b (MoE) and deepseek-v2-lite-16b (MLA on MoE; the flash
+kernel at head dim 192) (random weights from a seed) through the port's
 ``ServingEngine`` under the sync, async and worker policies, runs
 full-width olmo-1b's quantized KV restore under decode (bridge_opt on;
 restore codecs "", fp8 and int8, each restored block widened by the
@@ -23,7 +26,8 @@ P2P only above TP 1), checks that each path went through its kernels
 (launch counters: flash + paged for the dense models and the clusters,
 the chunked mLSTM scan for xlstm-1.3b, dequant once per quantized
 restore) and that its crossing tapes obey the bridge law, profiles a
-decode step of olmo-1b, xlstm-1.3b, qwen3p6-27b and qwen3-32b, recomputes
+decode step of olmo-1b, xlstm-1.3b, qwen3p6-27b, qwen3-32b and the three
+models above, recomputes
 ``BENCH_packed.json``, ``BENCH_obs.json``, ``BENCH_chaos.json``,
 ``BENCH_tp.json`` and ``BENCH_quant.json`` on the card
 (``repro_torch.bench``; a difference fails the run), and times each
@@ -35,7 +39,8 @@ profiled decode step's lengths back to back, after idle and after a
 GEMM; the mLSTM kernel at the longest prompt and summed over one main
 path run's prefills; the dequant kernel at a restore's shape, one list
 call against 32 single calls; flash and paged at qwen1.5-4b's,
-qwen3p6-27b's and qwen3-32b's head layouts).  It prints
+qwen3p6-27b's and qwen3-32b's head layouts; flash at deepseek-v2-lite's
+D = 192 and at hymba's windowed layout).  It prints
 the card's name and power limit, one ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the repository's ``src`` beside it, it exits non-zero and prints
@@ -109,6 +114,12 @@ LOADER = dict(n_shards=8, n_workers=8)
 TP = dict(degrees=(1, 2, 4, 8), partition_size=8, max_batch=8, max_len=1024,
           block_tokens=16, n_pages=512, n_requests=8, prompt_len=256,
           own_len=4, new_tokens=8)
+#: hymba-1.5b's ring phase: prompts past its 1024-token window, so every
+#: sliding layer's prefill runs the flash kernel with the window biting and
+#: decodes through its ring cache, while the global layers keep the paged
+#: kernel over a cache of ``max_len``
+RING = dict(max_batch=8, max_len=2048, prompt_lens=[1536, 1100, 300],
+            new_tokens=16)
 #: the faulted restores' plan: restore corruption only, at p 0.5.  Seed 1's
 #: first two restore-corruption draws (0.355, 0.031) fall below 0.5, so a
 #: restore redoes twice (the restore policy's cap) on either path
@@ -224,9 +235,20 @@ def phase_flash(gen) -> float:
     layouts = [dict(b=1, sq=512, sk=512, h=20, kv=20, d=128, causal=True),
                dict(b=1, sq=512, sk=512, h=64, kv=8, d=128, causal=True)]
     own_layouts = torch.Generator(device=DEVICE).manual_seed(19)
+    # D = 192 (deepseek-v2-lite's MLA prefill: nope 128 + rope 64, V
+    # zero-padded; the timed case first) and hymba's sliding layers (H25
+    # KV5 D64, window 1024 biting at 1536), from a generator of their own
+    wide = [dict(b=1, sq=512, sk=512, h=16, kv=16, d=192, causal=True),
+            dict(b=1, sq=1, sk=1, h=16, kv=16, d=192, causal=True),
+            dict(b=2, sq=65, sk=65, h=16, kv=16, d=192, causal=True),
+            dict(b=1, sq=1100, sk=1100, h=16, kv=16, d=192, causal=True),
+            dict(b=1, sq=1536, sk=1536, h=25, kv=5, d=64, causal=True,
+                 window=1024)]
+    own_wide = torch.Generator(device=DEVICE).manual_seed(22)
     worst = 0.0
     for c, g in ([(c, gen) for c in cases] + [(c, own) for c in added]
-                 + [(c, own_layouts) for c in layouts]):
+                 + [(c, own_layouts) for c in layouts]
+                 + [(c, own_wide) for c in wide]):
         q = _randn(g, c["b"], c["sq"], c["h"], c["d"])
         k = _randn(g, c["b"], c["sk"], c["kv"], c["d"])
         v = _randn(g, c["b"], c["sk"], c["kv"], c["d"])
@@ -598,12 +620,26 @@ def _paged_f64(q, k_pages, v_pages, block_tables, lengths):
                         v).to(q.dtype)
 
 
+def _window_mask(sq: int, sk: int, causal: bool, window: int):
+    """The (Sq, Sk) boolean mask of a causal or full sliding window."""
+    qpos = torch.arange(sq, device=DEVICE)[:, None]
+    kpos = torch.arange(sk, device=DEVICE)[None, :]
+    mask = kpos > qpos - window
+    return mask & (kpos <= qpos) if causal else mask
+
+
 def _flash_sdpa(q, k, v, *, causal, window=None):
-    """SDPA in the flash kernel's place (a yardstick, printed only)."""
-    check(window is None, "the SDPA yardstick takes no window")
-    return F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=causal, enable_gqa=True).transpose(1, 2)
+    """SDPA in the flash kernel's place (a yardstick, printed only); a
+    window goes in as a boolean mask."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=True)
+    else:
+        out = F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True,
+            attn_mask=_window_mask(q.shape[1], k.shape[1], causal, window))
+    return out.transpose(1, 2)
 
 
 def _paged_sdpa(q, k_pages, v_pages, block_tables, lengths):
@@ -620,10 +656,11 @@ def _paged_sdpa(q, k_pages, v_pages, block_tables, lengths):
                                           enable_gqa=True)[:, :, 0]
 
 
-def _with_attention(model, flash, paged, calls=None) -> torch.Tensor:
-    """``_prefill_and_decode(model, 100)`` with ``flash`` and ``paged`` in
-    the attention kernels' places; with ``calls``, every call's inputs are
-    kept there as ("flash" | "paged", args, kwargs)."""
+def _with_attention(model, flash, paged, calls=None,
+                    prompt_len: int = 100) -> torch.Tensor:
+    """``_prefill_and_decode(model, prompt_len)`` with ``flash`` and
+    ``paged`` in the attention kernels' places; with ``calls``, every
+    call's inputs are kept there as ("flash" | "paged", args, kwargs)."""
     from repro_torch.models import layers, transformer
     core, kernel = layers.attention_core, transformer.pa_ops.paged_attention
 
@@ -641,15 +678,18 @@ def _with_attention(model, flash, paged, calls=None) -> torch.Tensor:
     layers.attention_core = flash_kept
     transformer.pa_ops.paged_attention = paged_kept
     try:
-        return _prefill_and_decode(model, 100)
+        return _prefill_and_decode(model, prompt_len)
     finally:
         layers.attention_core, transformer.pa_ops.paged_attention = core, kernel
 
 
-def phase_model_check(model) -> None:
-    """A dense model (olmo-1b, qwen1.5-4b, qwen3-32b) with its kernels
-    against the same model with the kernels' plain versions swapped in, on
-    the card: a 100-token prefill and four teacher-forced decode steps.
+def phase_model_check(model, prompt_len: int = 100) -> None:
+    """An attention model (the dense ones, hymba-1.5b, deepseek-moe-16b,
+    deepseek-v2-lite-16b) with its kernels against the same model with the
+    kernels' plain versions swapped in, on the card: a ``prompt_len``-token
+    prefill and four teacher-forced decode steps (an MLA model's decode is
+    absorbed attention in torch and makes no paged call; hymba's at 1536
+    and 1100 tokens decodes its sliding layers through their rings).
 
     (1) Every flash and paged call of the plain run, on its own inputs (the
     model's activations and cache), the kernel against the plain version
@@ -666,12 +706,14 @@ def phase_model_check(model) -> None:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    kernel = _prefill_and_decode(model, 100)
+    kernel = _prefill_and_decode(model, prompt_len)
     calls = []
     plain = _with_attention(model, flash_attention_ref, paged_attention_ref,
-                            calls)
-    exact = _with_attention(model, _flash_f64, _paged_f64)
-    sdpa = _with_attention(model, _flash_sdpa, _paged_sdpa)
+                            calls, prompt_len)
+    exact = _with_attention(model, _flash_f64, _paged_f64,
+                            prompt_len=prompt_len)
+    sdpa = _with_attention(model, _flash_sdpa, _paged_sdpa,
+                           prompt_len=prompt_len)
     worst = {"flash": [0.0, 0.0, 0], "paged": [0.0, 0.0, 0]}
     for kind, args, kw in calls:
         fn, ref = ((fa.flash_attention, flash_attention_ref)
@@ -685,8 +727,9 @@ def phase_model_check(model) -> None:
     rel, floor = _rel(kernel, plain), _rel(exact, plain)
     limit = max(MODEL_REL_L2, MODEL_FLOOR_FACTOR * floor)
     finite = bool(torch.isfinite(kernel).all())
-    print(f"model check ({model.cfg.name}, 100-token prefill + 4 decode "
-          f"steps): every attention call on its own inputs, kernel vs plain "
+    print(f"model check ({model.cfg.name}, {prompt_len}-token prefill + 4 "
+          f"decode steps): every attention call on its own inputs, kernel vs "
+          f"plain "
           f"version: " + ", ".join(
               f"{k} {n} calls, worst max_abs_err {a:.3g} rel_l2 {r:.3g}"
               for k, (a, r, n) in worst.items())
@@ -696,7 +739,8 @@ def phase_model_check(model) -> None:
           f"(limit {limit:.5f}); finite {finite}")
     for kind, rel_limit in (("flash", FLASH_REL_L2), ("paged", PAGED_REL_L2)):
         a, r, n = worst[kind]
-        check(n > 0 and a <= BF16_TOL and r <= rel_limit,
+        needed = kind == "flash" or not model.cfg.use_mla
+        check((n > 0 or not needed) and a <= BF16_TOL and r <= rel_limit,
               f"{model.cfg.name}: the {kind} kernel disagrees with its plain "
               f"version on the model's own inputs: max abs {a}, rel L2 {r}")
     check(finite and rel <= limit,
@@ -775,13 +819,14 @@ def phase_xlstm_model_check(model) -> None:
           f"another f32 ordering of the plain version does ({floor})")
 
 
-def init_dense(arch: str):
-    """Full-width ``arch`` (a dense decoder) on the card, random weights
-    from seed 0; prints its shape, parameters and bytes, the KV cache the
-    main path holds (``MAIN``'s slots and length), the init's wall time and
-    the peak memory allocated by the init."""
+def init_model(arch: str):
+    """Full-width ``arch`` (an attention decoder) on the card, random
+    weights from seed 0; prints its shape, parameters and bytes, the cache
+    the main path holds (``MAIN``'s slots and length: KV, MLA latents, ring
+    caches, Mamba-2 state), the init's wall time and the peak memory
+    allocated by the init."""
     from repro_torch.configs.base import get_config
-    from repro_torch.models.model import Model
+    from repro_torch.models.model import Model, init_cache
     cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -790,29 +835,57 @@ def init_dense(arch: str):
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in model.buffers())
     p_bytes = sum(t.numel() * t.element_size() for t in model.buffers())
-    kv_bytes = (2 * cfg.n_layers * MAIN["max_batch"] * MAIN["max_len"]
-                * cfg.n_kv_heads * cfg.head_dim * torch.finfo(cfg.dtype).bits
-                // 8)
+    cache = init_cache(cfg, MAIN["max_batch"], MAIN["max_len"], cfg.dtype,
+                       device="meta")
+    kv_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache))
+    family = ""
+    if cfg.hybrid:
+        family = (f"; hybrid: Mamba-2 (e {cfg.ssm_expand * cfg.d_model}, "
+                  f"state {cfg.ssm_state}) beside attention, window "
+                  f"{cfg.sliding_window} except layers {cfg.global_layers}")
+    if cfg.n_routed_experts:
+        family += (f"; MoE: {cfg.n_routed_experts} routed experts of "
+                   f"{cfg.d_expert} (top {cfg.moe_top_k}) + "
+                   f"{cfg.n_shared_experts} shared, dense layer 0 "
+                   f"{cfg.first_layer_dense}")
+    if cfg.use_mla:
+        family += (f"; MLA: latent {cfg.kv_lora_rank}, rope "
+                   f"{cfg.rope_head_dim}, nope {cfg.nope_head_dim}, v "
+                   f"{cfg.v_head_dim}")
     print(f"{arch} at full width: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv_heads} KV) of "
           f"{cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.mlp_kind}), vocab "
           f"{cfg.vocab_size}, qkv_bias {cfg.qkv_bias}, qk_norm "
-          f"{cfg.qk_norm}, tied {cfg.tie_embeddings}; {n_params} parameters "
-          f"({cfg.param_count()} without the norms' scales), {p_bytes} "
-          f"bytes; KV cache of {MAIN['max_batch']} slots of "
+          f"{cfg.qk_norm}, tied {cfg.tie_embeddings}{family}; {n_params} "
+          f"parameters ({cfg.param_count()} without the norms' scales), "
+          f"{p_bytes} bytes; decode cache of {MAIN['max_batch']} slots of "
           f"{MAIN['max_len']} {kv_bytes} bytes; init {init_s:.1f} s, peak "
           f"allocated {torch.cuda.max_memory_allocated()} bytes of "
           f"{torch.cuda.get_device_properties(0).total_memory}")
     return model
 
 
-def dense_launches(cfg):
-    """``phase_main``'s expected launches for a dense model: one flash
-    launch per request and layer, one paged launch per decode step and
-    layer."""
+def _leaves(tree):
+    """The tensors of a nested dict / list tree."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def attention_launches(cfg):
+    """``phase_main``'s expected launches for an attention model: one flash
+    launch per request and layer; one paged launch per decode step and
+    layer, none for MLA (absorbed decode in torch).  Every layer's cache
+    holds ``MAIN``'s ``max_len`` (hymba's window is 1024), so no layer
+    decodes through a ring."""
+    paged = 0 if cfg.use_mla else cfg.n_layers
     return lambda stats, n_req: {
         "flash_attention": n_req * cfg.n_layers,
-        "paged_attention": stats["steps"] * cfg.n_layers, "mlstm_scan": 0,
+        "paged_attention": stats["steps"] * paged, "mlstm_scan": 0,
         "dequant": 0}
 
 
@@ -957,6 +1030,130 @@ def phase_main(model, expected) -> dict:
               f"{prefill_s[0]:.4f} s, decode {decode_tokens} tokens in "
               f"{decode_wall:.4f} s = {decode_tokens / decode_wall:.1f} "
               f"decode tok/s")
+    return launches
+
+
+def phase_moe_routing(model) -> None:
+    """The MoE prefills' capacity drops: MAIN's prompts prefilled one by
+    one (as the engine admits them), every MoE layer's dispatch counted;
+    prints, per prompt, the token-slots kept and dropped over the layers
+    (capacity ``max(k, ceil(t*k/e*1.25))`` a layer and expert)."""
+    from repro_torch.models import layers
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen)
+               for n in MAIN["prompt_lens"]]
+    dispatch = layers.moe_dispatch
+    seen = []
+
+    def counted(idx, n_experts, capacity):
+        out = dispatch(idx, n_experts, capacity)
+        seen.append((out[2].sum(), out[2].numel(), capacity))
+        return out
+
+    layers.moe_dispatch = counted
+    parts = []
+    try:
+        for p in prompts:
+            seen.clear()
+            model.prefill(p.to(DEVICE, torch.int32)[None], MAIN["max_len"])
+            kept = int(sum(k for k, _, _ in seen))
+            slots = sum(n for _, n, _ in seen)
+            parts.append(f"{len(p)}: kept {kept} dropped {slots - kept} "
+                         f"(capacity {seen[0][2]}, {len(seen)} layers)")
+            check(len(seen) == cfg.n_layers - 1 and kept <= slots,
+                  f"{cfg.name}: {len(seen)} MoE dispatches in a prefill")
+    finally:
+        layers.moe_dispatch = dispatch
+    print(f"moe routing {cfg.name} (prefills of MAIN's prompts, token-slots "
+          f"over the MoE layers): " + "; ".join(parts))
+
+
+def phase_hymba_ring(model) -> dict:
+    """hymba-1.5b past its window: the model check at 1536 and 1100
+    tokens (every flash call, the window biting in the sliding layers, and
+    every paged call of the global layers held to the plain versions; the
+    logits of the prefill and four ring decode steps to the plain run's),
+    then RING's three requests served under each policy at ``max_len``
+    2048: flash once per request and layer, paged once per decode step in
+    each global layer, every sliding layer's decode through its ring
+    (counted); tokens equal across the policies.  Returns the launches of
+    the three runs together, by kernel."""
+    from repro_torch.core.policy import SchedulingPolicy
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import SamplingParams
+    cfg = model.cfg
+    n_global = sum(transformer.layer_window(cfg, i) is None
+                   for i in range(cfg.n_layers))
+    for n in RING["prompt_lens"][:2]:
+        check(n > cfg.sliding_window, "the ring phase's prompts must pass "
+                                      "the window")
+        phase_model_check(model, prompt_len=n)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in RING["prompt_lens"]]
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
+    ring = transformer.ring_decode_attention
+    rings = [0]
+
+    def ring_counted(*a, **k):
+        rings[0] += 1
+        return ring(*a, **k)
+
+    tokens = {}
+    transformer.ring_decode_attention = ring_counted
+    try:
+        for policy in (SchedulingPolicy.SYNC_DRAIN,
+                       SchedulingPolicy.ASYNC_OVERLAP,
+                       SchedulingPolicy.WORKER_DRAIN):
+            engine = ServingEngine(model, max_batch=RING["max_batch"],
+                                   max_len=RING["max_len"], policy=policy,
+                                   cc_on=True, seed=0, device=DEVICE)
+            for i, p in enumerate(prompts):
+                engine.submit(Request(f"r{i}", prompt=p, sampling=SamplingParams(
+                    max_new_tokens=RING["new_tokens"])))
+            for fn in counters.values():
+                fn.launches = 0
+            rings[0] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                stats = engine.run()
+                torch.cuda.synchronize()
+            finally:
+                engine.close()
+            wall = time.perf_counter() - t0
+            counts = {name: fn.launches for name, fn in counters.items()}
+            for name, c in counts.items():
+                launches[name] += c
+            tokens[policy.value] = {r.request_id: list(r.output_tokens)
+                                    for r in engine.finished}
+            want = {"flash_attention": len(prompts) * cfg.n_layers,
+                    "paged_attention": stats["steps"] * n_global,
+                    "mlstm_scan": 0, "dequant": 0}
+            print(f"ring {cfg.name} {policy.value} (prompts "
+                  f"{RING['prompt_lens']}, max_len {RING['max_len']}, window "
+                  f"{cfg.sliding_window}): {stats['steps']} decode steps, "
+                  f"{stats['total_tokens']} tokens; launches {counts}; ring "
+                  f"decodes {rings[0]} ({cfg.n_layers - n_global} sliding "
+                  f"layers a step); wall {wall:.3f} s")
+            check(stats["finished"] == len(prompts) and all(
+                len(t) == RING["new_tokens"]
+                for t in tokens[policy.value].values()),
+                f"ring {policy.value}: requests unfinished")
+            check(counts == want, f"ring {policy.value}: launches {counts}, "
+                                  f"expected {want}")
+            check(rings[0] == stats["steps"] * (cfg.n_layers - n_global),
+                  f"ring {policy.value}: {rings[0]} ring decodes in "
+                  f"{stats['steps']} steps")
+    finally:
+        transformer.ring_decode_attention = ring
+    same = len({json.dumps(t, sort_keys=True) for t in tokens.values()}) == 1
+    print(f"ring token criterion: tokens equal across the three policies "
+          f"{same}")
+    check(same, "ring: the policies' tokens differ")
     return launches
 
 
@@ -1725,7 +1922,7 @@ def _serve_sync(model, label: str) -> tuple:
         engine.close()
     wall = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in counters.items()}
-    want = dense_launches(model.cfg)(stats, len(prompts))
+    want = attention_launches(model.cfg)(stats, len(prompts))
     check(counts == want, f"{label}: launches {counts}, expected {want}")
     check(stats["finished"] == len(prompts), f"{label}: {stats['finished']} "
           f"of {len(prompts)} requests finished")
@@ -2379,10 +2576,43 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
 
     rows.append(_time_dequant(gen, launches, errs))
     layouts = _time_layouts(gen)
+    layouts.update(_time_wide_flash(gen))
     for row in rows[:2]:
         row["head_layouts"] = {arch: t[row["name"]]
-                               for arch, t in layouts.items()}
+                               for arch, t in layouts.items()
+                               if row["name"] in t}
     return rows
+
+
+def _time_wide_flash(gen) -> dict:
+    """The flash kernel at deepseek-v2-lite-16b's MLA prefill (B=1 S=512
+    H16 KV16 D=192 causal) and at hymba-1.5b's sliding layers (B=1
+    S=1536 H25 KV5 D=64, causal, window 1024), beside SDPA (the window as
+    a boolean mask), device time per call in turns, with the bound: the
+    operations of the unmasked (q, k) pairs and the bytes of q, k, v and
+    o."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    out = {}
+    for arch, s, h, kv, d, window in (
+            ("deepseek-v2-lite-16b", 512, 16, 16, 192, None),
+            ("hymba-1.5b", 1536, 25, 5, 64, 1024)):
+        q, k, v = (_randn(gen, 1, s, n, d) for n in (h, kv, kv))
+        got = _in_turns(dict(
+            kernel=lambda: fa.flash_attention(q, k, v, causal=True,
+                                              window=window),
+            sdpa=lambda: _flash_sdpa(q, k, v, causal=True, window=window)),
+            f"flash {arch} S={s} D={d}")
+        pairs = sum(min(i + 1, window or s) for i in range(s))
+        bms, by = bound(4.0 * h * d * pairs, 2 * s * (2 * h + 2 * kv) * d)
+        print(f"timing flash at {arch}'s prefill (B=1 S={s} H={h} KV={kv} "
+              f"D={d} causal, window {window}): kernel {_ms(got['kernel'])}, "
+              f"sdpa {_ms(got['sdpa'])}, bound {bms:.5f} ms ({by}); kernel "
+              f"/ sdpa {_ratio(got['kernel'], got['sdpa'])}")
+        out[arch] = {"flash_attention": dict(
+            ms=got["kernel"], library_ms=got["sdpa"], bound_ms=bms,
+            bound_by=by, shape=dict(s=s, h=h, kv=kv, d=d, window=window))}
+        del q, k, v
+    return out
 
 
 def _time_layouts(gen) -> dict:
@@ -2737,9 +2967,9 @@ def main() -> None:
             "dequant": phase_dequant(gen)}
 
     # olmo-1b: flash prefill, paged decode
-    model = init_dense("olmo-1b")
+    model = init_model("olmo-1b")
     phase_model_check(model)
-    launches = phase_main(model, dense_launches(model.cfg))
+    launches = phase_main(model, attention_launches(model.cfg))
     phase_profile(model)
     launches["dequant"] += phase_restore(model)
     for phase in (phase_chaos, phase_loader, phase_tp):
@@ -2778,12 +3008,32 @@ def main() -> None:
     # (GQA 64/8, qk_norm; 65.5 GB): the flash and paged kernels at their
     # head layouts; each is freed before the next is drawn
     for arch in ("qwen1.5-4b", "qwen3p6-27b", "qwen3-32b"):
-        model = init_dense(arch)
+        model = init_model(arch)
         phase_model_check(model)
-        more = phase_main(model, dense_launches(model.cfg))
+        more = phase_main(model, attention_launches(model.cfg))
         launches = {k: n + more[k] for k, n in launches.items()}
         if arch != "qwen1.5-4b":
             phase_profile(model)
+        print(f"{arch}: peak allocated over its phases "
+              f"{torch.cuda.max_memory_allocated()} bytes")
+        del model
+        torch.cuda.empty_cache()
+
+    # hymba-1.5b (parallel attention + Mamba-2 heads, sliding-window ring
+    # caches), deepseek-moe-16b (MoE after a dense layer 0) and
+    # deepseek-v2-lite-16b (MLA on MoE: flash at D = 192, absorbed decode
+    # without the paged kernel); each is freed before the next is drawn
+    for arch in ("hymba-1.5b", "deepseek-moe-16b", "deepseek-v2-lite-16b"):
+        model = init_model(arch)
+        phase_model_check(model)
+        more = phase_main(model, attention_launches(model.cfg))
+        if model.cfg.hybrid:
+            ring = phase_hymba_ring(model)
+            more = {k: n + ring[k] for k, n in more.items()}
+        if model.cfg.n_routed_experts:
+            phase_moe_routing(model)
+        launches = {k: n + more[k] for k, n in launches.items()}
+        phase_profile(model)
         print(f"{arch}: peak allocated over its phases "
               f"{torch.cuda.max_memory_allocated()} bytes")
         del model

@@ -203,12 +203,14 @@ ARCH_IDS = (
     "qwen3p6-27b",
 )
 
-#: the archs whose model this package can run: dense decoders with full
-#: attention and the xLSTM stack.  Every arch's config loads (``get_config``)
-#: and prices (``core.compute``); ``Model`` refuses the others' families
-#: (``models.transformer.check_supported``; ROADMAP.md, Queue 1 item 4)
+#: the archs whose model this package can run: the decoder-only families
+#: (dense, MoE, MLA, hymba's hybrid blocks, the xLSTM stack).  Every arch's
+#: config loads (``get_config``) and prices (``core.compute``); ``Model``
+#: refuses encoders and frontends (``models.transformer.check_supported``;
+#: ROADMAP.md, Queue 1 item 2)
 PORTED_ARCH_IDS = ("olmo-1b", "qwen1.5-4b", "qwen3-32b", "nemotron-4-340b",
-                   "qwen3p6-27b", "xlstm-1.3b")
+                   "qwen3p6-27b", "xlstm-1.3b", "hymba-1.5b",
+                   "deepseek-moe-16b", "deepseek-v2-lite-16b")
 
 _REGISTRY: dict[str, ModelConfig] = {}
 

@@ -2,8 +2,7 @@
 vocab=102400, MoE 64e top-6 — 2 shared + 64 routed top-6, fine-grained
 [arXiv:2401.06066].  Layer 0 is a dense MLP per the published model.
 
-Carried for pricing only (``core.compute``): ``Model`` refuses MoE blocks
-(``models.transformer.check_supported``).
+``Model`` runs it: MoE blocks after a dense layer 0 (``models.layers``).
 """
 
 from repro_torch.configs.base import ModelConfig, register

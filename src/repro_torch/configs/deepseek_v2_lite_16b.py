@@ -6,8 +6,8 @@ Assignment-line discrepancy (recorded in DESIGN.md §4): the inline spec says
 "MoE 64e top-6" while the prose says "2 shared+160 routed"; the published
 V2-Lite has 64 routed experts — we follow the bracketed spec (64 routed).
 
-Carried for pricing only (``core.compute``): ``Model`` refuses MLA and MoE
-blocks (``models.transformer.check_supported``).
+``Model`` runs it: MLA (absorbed decode over the latent cache) on MoE
+blocks (``models.layers``).
 """
 
 from repro_torch.configs.base import ModelConfig, register

@@ -6,8 +6,8 @@ input and their normalized outputs are averaged.  Sliding-window attention
 everywhere except three global full-attention layers (first/middle/last),
 so the long_500k shape runs with bounded KV + SSM state.
 
-Carried for pricing only (``core.compute``): ``Model`` refuses hybrid
-blocks and sliding-window caches (``models.transformer.check_supported``).
+``Model`` runs it: Mamba-2 heads beside attention, sliding-window ring
+caches (``models.ssm``, ``models.transformer``).
 """
 
 from repro_torch.configs.base import ModelConfig, register

@@ -4,8 +4,9 @@ The reference's parameter and cache trees, exported to numpy (nested dicts
 and lists whose leaves are arrays or objects holding one in ``.value``),
 become the port's trees of tensors on ``device`` with the same structure
 and layouts: scan-stacked ``blocks`` keep their leading layers axis,
-unrolled (xLSTM) ``blocks`` and state trees stay per-layer lists, and a
-tied embedding stays one ``embed`` leaf.  bf16 converts exactly:
+unrolled (hymba, xLSTM) ``blocks`` and cache trees stay per-layer lists,
+MoE's dense layer 0 stays ``block0``, and a tied embedding stays one
+``embed`` leaf.  bf16 converts exactly:
 ``torch.from_numpy`` does not take numpy's bfloat16 extension type, so the
 bits cross as uint16 and are viewed as ``torch.bfloat16``.  Nothing here
 imports JAX; the export to numpy is the caller's.
@@ -48,6 +49,7 @@ def params_from_numpy(tree, cfg, device: DeviceLike = None) -> dict:
     blocks = params["blocks"]
     lead = (len(blocks) if isinstance(blocks, list)
             else blocks["attn"]["wq"].shape[0])
+    lead += "block0" in params
     if lead != cfg.n_layers:
         raise ValueError(f"blocks carry {lead} layers, {cfg.name} has "
                          f"{cfg.n_layers}")
@@ -55,7 +57,10 @@ def params_from_numpy(tree, cfg, device: DeviceLike = None) -> dict:
 
 
 def cache_from_numpy(tree, device: DeviceLike = None) -> dict:
-    """The reference's decode cache tree as the port's: the dense KV
-    cache (``{"blocks": {"kv": {"k", "v", "pos"}}}``, stacked over layers)
-    or xLSTM's per-layer state list (``{"blocks": [{"ssm": {...}}, ...]}``)."""
+    """The reference's decode cache tree as the port's: the attention
+    caches (``{"blocks": ..., ["block0": ...]}``, ``blocks`` stacked over
+    layers or a per-layer list; each layer ``{"kv": {"k", "v", "pos"}}``,
+    MLA's ``{"kv": {"c", "k_pe", "pos"}}``, hymba's with ``"ssm"`` beside
+    ``"kv"``) or xLSTM's per-layer state list (``{"blocks": [{"ssm":
+    {...}}, ...]}``)."""
     return _convert(tree, resolve_device(device))

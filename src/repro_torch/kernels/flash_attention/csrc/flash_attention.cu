@@ -35,17 +35,31 @@
 // by TMA from a producer warp is the step after this one.
 //
 // Layout: q (B, Sq, H, D), k and v (B, Sk, KV, D), o (B, Sq, H, D), all
-// contiguous and 16-byte aligned, D in {32, 64, 128}.  Grid (H, B,
+// contiguous and 16-byte aligned, D in {32, 64, 128, 192}.  Grid (H, B,
 // ceil(Sq/64)), 128 threads: 4 warps of 16 query rows each; KV tiles of 64
 // keys.  Any Sq and Sk: key rows past Sk are zero-filled by cp.async and
 // masked, query rows past Sq are computed from zeros and never stored.
 // H % KV == 0 with any ratio.  Masks and constants follow _flash_kernel:
 // NEG_INF = -1e30, denominator max(l, 1e-30); the mask is applied only on
 // tiles that cross the diagonal, the window edge or Sk.
+//
+// D = 192 (MLA's nope + rope head dim, V zero-padded to it): Q, K and V
+// tiles take 5 x 64 x 192 x 2 = 122,880 bytes of shared memory (one block
+// an SM) and the f32 accumulator 96 registers a thread.  So that the
+// thread stays within its 255 registers without spilling, Q's fragments
+// are read from shared memory at every KV tile instead of being held, and
+// each 16-column V fragment is loaded just before its four MMAs.  The
+// arithmetic and its order per accumulator are those of the smaller dims.
+// The dynamic shared-memory limit is raised once per process, device and
+// instantiation (nothing below the default 48 KB), as the paged kernel
+// does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -54,6 +68,8 @@ constexpr int BK = 64;        // keys per KV tile
 constexpr int WARPS = 4;      // 16 query rows each
 constexpr int THREADS = 32 * WARPS;
 constexpr float NEG_INF = -1e30f;
+constexpr size_t SMEM_DEFAULT = 48 * 1024;
+constexpr int MAX_DEVICES = 64;
 
 // A 64-row bf16 tile of D columns in shared memory.  Row r's 16-byte chunk
 // c sits at chunk c ^ f(r): the eight rows one ldmatrix reads (or eight
@@ -157,6 +173,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KS = D / 16;   // k-steps of Q.K^T
   constexpr int DT = D / 8;    // 8-column tiles of O
   constexpr int NT = BK / 8;   // 8-key tiles of S
+  constexpr bool WIDE = D > 128;  // Q from shared memory, V one fragment at a time
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* k_s = q_s + T::ELEMS;      // two stages
@@ -191,7 +208,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_commit();
 
-  uint32_t qf[KS][4];  // Q's A-fragments, loaded once
+  uint32_t qf[WIDE ? 1 : KS][4];  // Q's A-fragments, loaded once (D <= 128)
   float acc[DT][4];    // O: rows gid (0, 1) and gid + 8 (2, 3)
 #pragma unroll
   for (int i = 0; i < DT; ++i)
@@ -213,25 +230,35 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* ks = k_s + st * T::ELEMS;
     const __nv_bfloat16* vs = v_s + st * T::ELEMS;
 
-    if (kt == kt_begin) {
+    if constexpr (!WIDE) {
+      if (kt == kt_begin) {
 #pragma unroll
-      for (int i = 0; i < KS; ++i)
-        ldmatrix_x4(qf[i], q_s + T::off(wr + (lane & 15), 2 * i + (lane >> 4)));
+        for (int i = 0; i < KS; ++i)
+          ldmatrix_x4(qf[i], q_s + T::off(wr + (lane & 15), 2 * i + (lane >> 4)));
+      }
     }
 
     // S = Q.K^T, 16 x 64 per warp in f32
     float s[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
+    // WIDE: k-steps in turn, so Q's fragments are not all read ahead
+#pragma unroll (WIDE ? 1 : KS)
     for (int i = 0; i < KS; ++i) {
+      uint32_t qa[4];
+      if constexpr (WIDE) {
+        ldmatrix_x4(qa, q_s + T::off(wr + (lane & 15), 2 * i + (lane >> 4)));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[i][e];
+      }
 #pragma unroll
       for (int jp = 0; jp < NT / 2; ++jp) {
         uint32_t kf[4];  // keys 16jp.. : (b0, b1) of tile 2jp, then 2jp + 1
         ldmatrix_x4(kf, ks + T::off(16 * jp + (lane & 7) + ((lane >> 4) << 3),
                                     2 * i + ((lane >> 3) & 1)));
-        mma_bf16(s[2 * jp], qf[i], kf[0], kf[1]);
-        mma_bf16(s[2 * jp + 1], qf[i], kf[2], kf[3]);
+        mma_bf16(s[2 * jp], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * jp + 1], qa, kf[2], kf[3]);
       }
     }
 
@@ -299,21 +326,35 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       split_p(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
       split_p(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
       split_p(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-      uint32_t vf[D / 16][4];  // columns 16dp..: (b0, b1) of tile 2dp, 2dp + 1
+      if constexpr (WIDE) {
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp)
-        ldmatrix_x4_trans(vf[dp], vs + T::off(16 * kk + (lane & 7)
-                                              + ((lane >> 3) & 1) * 8,
-                                              2 * dp + (lane >> 4)));
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t vf[4];  // columns 16dp..: (b0, b1) of tile 2dp, 2dp + 1
+          ldmatrix_x4_trans(vf, vs + T::off(16 * kk + (lane & 7)
+                                            + ((lane >> 3) & 1) * 8,
+                                            2 * dp + (lane >> 4)));
+          mma_bf16(acc[2 * dp], ph, vf[0], vf[1]);
+          mma_bf16(acc[2 * dp + 1], ph, vf[2], vf[3]);
+          mma_bf16(acc[2 * dp], pl, vf[0], vf[1]);
+          mma_bf16(acc[2 * dp + 1], pl, vf[2], vf[3]);
+        }
+      } else {
+        uint32_t vf[D / 16][4];  // columns 16dp..: (b0, b1) of tile 2dp, 2dp + 1
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        mma_bf16(acc[2 * dp], ph, vf[dp][0], vf[dp][1]);
-        mma_bf16(acc[2 * dp + 1], ph, vf[dp][2], vf[dp][3]);
-      }
+        for (int dp = 0; dp < D / 16; ++dp)
+          ldmatrix_x4_trans(vf[dp], vs + T::off(16 * kk + (lane & 7)
+                                                + ((lane >> 3) & 1) * 8,
+                                                2 * dp + (lane >> 4)));
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        mma_bf16(acc[2 * dp], pl, vf[dp][0], vf[dp][1]);
-        mma_bf16(acc[2 * dp + 1], pl, vf[dp][2], vf[dp][3]);
+        for (int dp = 0; dp < D / 16; ++dp) {
+          mma_bf16(acc[2 * dp], ph, vf[dp][0], vf[dp][1]);
+          mma_bf16(acc[2 * dp + 1], ph, vf[dp][2], vf[dp][3]);
+        }
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          mma_bf16(acc[2 * dp], pl, vf[dp][0], vf[dp][1]);
+          mma_bf16(acc[2 * dp + 1], pl, vf[dp][2], vf[dp][3]);
+        }
       }
     }
     __syncthreads();  // every warp is done with this stage before refill
@@ -350,6 +391,27 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// Raise the instantiation's dynamic shared-memory limit once per process
+// and device; nothing below the default.
+template <int D>
+cudaError_t allow_smem() {
+  constexpr size_t bytes = Tile<D>::SMEM;
+  if (bytes <= SMEM_DEFAULT) return cudaSuccess;
+  static std::mutex mu;
+  static bool allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) allowed[dev] = true;
+  return err;
+}
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int sq, int sk, int h, int kv, int causal,
@@ -357,9 +419,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const int nq = (sq + BQ - 1) / BQ;
   if (b > 65535 || nq > 65535) return cudaErrorInvalidValue;
   const size_t smem = Tile<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = allow_smem<D>();
   if (err != cudaSuccess) return err;
   dim3 grid(h, b, nq);
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
@@ -384,6 +444,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     case 32: return launch<32>(q, k, v, o, b, sq, sk, h, kv, causal, window, scale, s);
     case 64: return launch<64>(q, k, v, o, b, sq, sk, h, kv, causal, window, scale, s);
     case 128: return launch<128>(q, k, v, o, b, sq, sk, h, kv, causal, window, scale, s);
+    case 192: return launch<192>(q, k, v, o, b, sq, sk, h, kv, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

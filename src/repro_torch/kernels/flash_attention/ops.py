@@ -16,8 +16,8 @@ import torch
 
 from .ref import flash_attention_ref
 
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128)
+#: head dims the kernel is instantiated for (192: MLA's nope + rope)
+HEAD_DIMS = (32, 64, 128, 192)
 
 
 def _check(q, k, v, window):

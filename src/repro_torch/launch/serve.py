@@ -4,8 +4,9 @@
         --requests 16 --policy sync --cc
 
 runs full-width olmo-1b on the card (``--arch`` takes any arch the model
-runs: qwen1.5-4b and qwen3-32b fit one H100 at full width, nemotron-4-340b
-only at smoke width, xlstm-1.3b is the xLSTM stack; ``--smoke``, the
+runs: qwen1.5-4b, qwen3-32b, hymba-1.5b, deepseek-moe-16b and
+deepseek-v2-lite-16b fit one H100 at full width, nemotron-4-340b only at
+smoke width, xlstm-1.3b is the xLSTM stack; ``--smoke``, the
 default, runs the reduced config; ``--device cpu`` runs on the CPU).  The
 TransferGateway
 charges bridge-law costs to the virtual clock while the model runs for

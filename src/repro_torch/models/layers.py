@@ -1,6 +1,7 @@
-"""Model building blocks: norms, rotary embeddings, GQA attention, MLPs.
+"""Model building blocks: norms, rotary embeddings, GQA and MLA attention,
+MLPs and MoE.
 
-PyTorch counterpart of ``repro.models.layers`` for the dense family.
+PyTorch counterpart of ``repro.models.layers``.
 Parameters are plain tensors in nested dicts, in the JAX package's layouts
 (``wq`` (d, H, hd), ``wo`` (H, hd, d), ``wi`` (d, f), ...), so moving
 weights across is a copy (``repro_torch.convert``).  Every block is a
@@ -11,8 +12,11 @@ Prefill attention always goes through the flash-attention kernel's wrapper
 hand-written CUDA kernel for a tensor on the card, its plain version (the
 reference's ``dense_attention`` arithmetic) for a tensor on the CPU.
 ``dense_attention`` and ``blockwise_attention`` are kept as plain versions
-of the reference's two jnp attention paths.  MLA and MoE blocks are still
-to port (ROADMAP.md, Queue 1 item 4).
+of the reference's two jnp attention paths.  MLA's absorbed decode and the
+MoE dispatch and expert products are jnp code in the reference, outside
+any Pallas kernel, and plain torch here.  MoE runs on one device: the
+reference's expert-parallel ``shard_map`` is still to port (ROADMAP.md,
+Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -296,3 +300,210 @@ def mlp_block(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     else:
         raise ValueError(cfg.mlp_kind)
     return torch.einsum("bsf,fd->bsd", h, p["wo"])
+
+
+# ---------------------------------------------------------------------------------
+# MLA attention (deepseek-v2): latent KV cache
+# ---------------------------------------------------------------------------------
+
+def init_mla(generator, cfg, *, lead: tuple = (), device=None) -> Params:
+    d, h = cfg.d_model, cfg.n_heads
+    dc, dr = cfg.kv_lora_rank, cfg.rope_head_dim
+    dn, dv = cfg.nope_head_dim, cfg.v_head_dim
+
+    def mk(shape, fan_in):
+        return make_param(generator, shape, lead=lead, fan_in=fan_in,
+                          dtype=cfg.dtype, device=device)
+
+    return {
+        "wq": mk((d, h, dn + dr), d),
+        "wdkv": mk((d, dc + dr), d),
+        "kv_norm": init_norm(generator, dc, "rmsnorm", cfg.dtype, lead=lead,
+                             device=device),
+        "wuk": mk((dc, h, dn), dc),
+        "wuv": mk((dc, h, dv), dc),
+        "wo": mk((h, dv, d), h * dv),
+    }
+
+
+def mla_latents(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """q_nope, q_pe (post-RoPE), the normed latent c and the shared
+    post-RoPE rope key k_pe of x: (B, S, D)."""
+    dc, dr, dn = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.nope_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    ckv = torch.einsum("bsd,dk->bsk", x, p["wdkv"])
+    c, k_pe = ckv[..., :dc], ckv[..., dc:]
+    c = apply_norm(p["kv_norm"], c, "rmsnorm")
+    sin, cos = rope_table(positions, dr, cfg.rope_theta)
+    q_pe = apply_rope(q_pe, sin, cos)
+    k_pe = apply_rope(k_pe[:, :, None, :], sin, cos)[:, :, 0, :]
+    return q_nope, q_pe, c, k_pe
+
+
+def mla_block(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+              return_kv: bool = False):
+    """Multi-head latent attention over a full sequence (prefill): K/V are
+    decompressed per head and run through the flash kernel at head dim
+    ``nope + rope`` with V zero-padded to it, then sliced back to
+    ``v_head_dim``.  With ``return_kv`` the post-RoPE latents (c, k_pe)
+    come back for one-shot cache assembly.  Decode is ``mla_decode``."""
+    b, s, _ = x.shape
+    h, dr = cfg.n_heads, cfg.rope_head_dim
+    dn, dv = cfg.nope_head_dim, cfg.v_head_dim
+    q_nope, q_pe, c, k_pe = mla_latents(p, x, cfg, positions)
+    k_nope = torch.einsum("btc,chn->bthn", c, p["wuk"])
+    v = torch.einsum("btc,chv->bthv", c, p["wuv"])
+    k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, dr)],
+                       dim=-1)
+    q_full = torch.cat([q_nope, q_pe], dim=-1)
+    out = attention_core(q_full, k_full, F.pad(v, (0, dn + dr - dv)),
+                         causal=True)[..., :dv]
+    y = torch.einsum("bshv,hvd->bsd", out, p["wo"])
+    return y, ((c, k_pe) if return_kv else None)
+
+
+def mla_decode(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+               cache: dict, cache_index: torch.Tensor, slots: torch.Tensor):
+    """One new token per row against the latent cache, *in place*: row
+    ``i`` writes (c, k_pe) at ``[slots[i], cache_index[i]]`` (no ring;
+    ``pos`` keeps its prefill values, as the reference leaves it) and
+    attends in the absorbed form, W_uk folded into q, over its slot's
+    positions ``0 .. cache_index[i]``.  The products take bf16 operands
+    with f32 sums: the operands are widened to f32, whose products of bf16
+    values are exact, as the reference computes them off the TPU."""
+    b = x.shape[0]
+    dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
+    q_nope, q_pe, c, k_pe = mla_latents(p, x, cfg, positions)
+    cc, ck = cache["c"], cache["k_pe"]
+    rows, idx = slots.to(torch.int64), cache_index.to(torch.int64)
+    cc[rows, idx] = c[:, 0].to(cc.dtype)
+    ck[rows, idx] = k_pe[:, 0].to(ck.dtype)
+    lat, rope_k = cc[rows].float(), ck[rows].float()     # (b, T, dc), (b, T, dr)
+    scale = 1.0 / math.sqrt(dn + dr)
+    q_c = torch.einsum("bshn,chn->bshc", q_nope, p["wuk"])
+    logits = (torch.einsum("bshc,btc->bhst", q_c.float(), lat)
+              + torch.einsum("bshr,btr->bhst", q_pe.float(), rope_k)) * scale
+    tpos = torch.arange(cc.shape[1], device=x.device)
+    mask = tpos[None, :] <= idx[:, None]                 # (b, T)
+    logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    o_c = torch.einsum("bhst,btc->bshc", probs, lat)
+    out = torch.einsum("bshc,chv->bshv", o_c, p["wuv"].float()).to(x.dtype)
+    return torch.einsum("bshv,hvd->bsd", out, p["wo"])
+
+
+# ---------------------------------------------------------------------------------
+# MoE: shared + routed top-k experts, capacity-based dispatch (one device)
+# ---------------------------------------------------------------------------------
+
+def init_moe(generator, cfg, *, lead: tuple = (), device=None) -> Params:
+    d, f, e = cfg.d_model, cfg.d_expert, cfg.n_routed_experts
+
+    def mk(shape, fan_in, dtype=cfg.dtype):
+        return make_param(generator, shape, lead=lead, fan_in=fan_in,
+                          dtype=dtype, device=device)
+
+    p = {"router": mk((d, e), d, torch.float32),
+         "wi": mk((e, d, f), d), "wg": mk((e, d, f), d),
+         "wo": mk((e, f, d), f)}
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(generator, cfg,
+                               d_ff=cfg.d_expert * cfg.n_shared_experts,
+                               lead=lead, device=device)
+    return p
+
+
+def moe_capacity(t: int, cfg, *, capacity_factor: float,
+                 no_drop: bool) -> int:
+    """Token slots per expert: every token (decode) or
+    ``max(k, ceil(t*k/e*capacity_factor))``, in the reference's float
+    order."""
+    k, e = cfg.moe_top_k, cfg.n_routed_experts
+    if no_drop:
+        return t
+    return int(max(k, math.ceil(t * k / e * capacity_factor)))
+
+
+def moe_dispatch(idx: torch.Tensor, n_experts: int, capacity: int):
+    """Slots of the flattened (t, k) assignments: each assignment's place
+    in its expert's queue (cumsum in assignment order), kept below
+    ``capacity``; a dropped one goes to the waste slot ``capacity``.
+    Returns (flat expert ids, slots, kept), each (t*k,)."""
+    flat = idx.reshape(-1)
+    onehot = F.one_hot(flat, n_experts).to(torch.int32)
+    pos = torch.cumsum(onehot, dim=0) - 1
+    pos = torch.gather(pos, 1, flat[:, None])[:, 0]
+    keep = pos < capacity
+    slot = torch.where(keep, pos, torch.full_like(pos, capacity))
+    return flat, slot.to(torch.int64), keep
+
+
+def moe_expert_compute(x, idx, gates, wi, wg, wo, *, capacity: int,
+                       dtype) -> torch.Tensor:
+    """Routed experts on one device.  x: (t, d); idx/gates: (t, k).
+
+    The kept assignments scatter into an (e, capacity + 1, d) buffer whose
+    last slot absorbs the dropped ones (as zeros) and is discarded; each
+    expert runs its SwiGLU over its ``capacity`` slots as a batched matmul
+    (every expert's weights are read, as the reference's dense dispatch
+    reads them), and the outputs gather back weighted by the gates.
+    Returns y (t, d) in f32."""
+    t, d = x.shape
+    e, k = wi.shape[0], idx.shape[-1]
+    flat, slot, keep = moe_dispatch(idx, e, capacity)
+    if x.device.type == "cpu":
+        # an accumulating scatter is deterministic on the card only if no
+        # two kept assignments share a slot: duplicates are the waste
+        # slot's, which add zeros and are discarded
+        pairs = flat[keep] * (capacity + 1) + slot[keep]
+        assert pairs.unique().numel() == pairs.numel(), \
+            "two kept MoE assignments share an expert slot"
+    buf = torch.zeros((e, capacity + 1, d), dtype=dtype, device=x.device)
+    src = x.repeat_interleave(k, dim=0).to(dtype)
+    src = torch.where(keep[:, None], src, torch.zeros_like(src))
+    buf.index_put_((flat, slot), src, accumulate=True)
+    buf = buf[:, :capacity]
+    hg = silu(torch.einsum("ecd,edf->ecf", buf, wg))
+    hi = torch.einsum("ecd,edf->ecf", buf, wi)
+    out = torch.einsum("ecf,efd->ecd", hg * hi, wo)
+    out = F.pad(out, (0, 0, 0, 1))                       # waste slot reads 0
+    gathered = out[flat, slot]                           # (t*k, d)
+    w = (gates.reshape(t * k) * keep).float()
+    return (gathered.float() * w[:, None]).reshape(t, k, d).sum(dim=1)
+
+
+def moe_route(p: Params, x: torch.Tensor, cfg):
+    """The f32 router: softmax over experts, top-k, gates renormalised.
+    Returns (probs (g,s,e), gates (g,s,k), idx (g,s,k))."""
+    logits = torch.einsum("gsd,de->gse", x.float(), p["router"])
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, cfg.moe_top_k, dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return probs, gates, idx
+
+
+def moe_block(p: Params, x: torch.Tensor, cfg, *,
+              capacity_factor: float = 1.25,
+              no_drop: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed + shared experts.  Returns (y, aux): aux the
+    Switch-style load-balancing loss.  ``no_drop``: capacity is every
+    token, so decode routes exactly."""
+    g, s, d = x.shape
+    e, k = cfg.n_routed_experts, cfg.moe_top_k
+    probs, gates, idx = moe_route(p, x, cfg)
+    me = probs.mean(dim=(0, 1))
+    ce = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
+        0, idx.reshape(-1), torch.ones(idx.numel(), device=x.device)
+    ) / (g * s * k)
+    aux = e * torch.sum(me * ce)
+    t = g * s
+    capacity = moe_capacity(t, cfg, capacity_factor=capacity_factor,
+                            no_drop=no_drop)
+    y = moe_expert_compute(x.reshape(t, d), idx.reshape(t, k),
+                           gates.reshape(t, k), p["wi"], p["wg"], p["wo"],
+                           capacity=capacity, dtype=cfg.dtype)
+    y = y.to(x.dtype).reshape(g, s, d)
+    if cfg.n_shared_experts:
+        y = y + mlp_block(p["shared"], x, cfg)
+    return y, aux

@@ -1,10 +1,11 @@
 """Top-level model API: init / prefill / decode_step.
 
-PyTorch counterpart of ``repro.models.model`` for the dense family and
-the xLSTM stack (whose ``blocks`` and caches are per-layer lists).  The
-module-level functions take the parameter tree explicitly, as the
-reference's do; ``Model`` is the ``nn.Module`` that owns one tree on one
-device and binds them.
+PyTorch counterpart of ``repro.models.model`` for the decoder-only
+families: dense, MoE and MLA decoders (scan-stacked ``blocks``, MoE's dense
+layer 0 apart as ``block0``), hymba's hybrid blocks and the xLSTM stack
+(per-layer lists).  The module-level functions take the parameter tree
+explicitly, as the reference's do; ``Model`` is the ``nn.Module`` that owns
+one tree on one device and binds them.
 
 Batch contracts:
   prefill: tokens (B,S) int; returns (last_logits (B,1,V), cache, S)
@@ -22,9 +23,9 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device
 
 from .layers import Params, apply_norm, init_norm, make_param
-from .transformer import (block_apply, check_supported, init_blocks,
-                          init_layer_states, init_stacked_cache, layer_params,
-                          xlstm_block_apply)
+from .transformer import (block_apply, check_supported, first_stacked_layer,
+                          init_attention_caches, init_block, init_blocks,
+                          init_layer_states, layer_params, xlstm_block_apply)
 
 
 # ---------------------------------------------------------------------------------
@@ -32,8 +33,8 @@ from .transformer import (block_apply, check_supported, init_blocks,
 # ---------------------------------------------------------------------------------
 
 def init_params(cfg, generator: torch.Generator, *, device=None) -> dict:
-    """Random parameters in the reference's tree layout (stacked dense
-    blocks or a per-layer xLSTM list, tied or separate unembedding), drawn
+    """Random parameters in the reference's tree layout (``block0`` and
+    stacked or per-layer ``blocks``, tied or separate unembedding), drawn
     from ``generator``."""
     check_supported(cfg)
     params: dict = {
@@ -47,6 +48,8 @@ def init_params(cfg, generator: torch.Generator, *, device=None) -> dict:
         params["unembed"] = make_param(generator, (cfg.d_model, cfg.vocab_size),
                                        fan_in=cfg.d_model, dtype=cfg.dtype,
                                        device=device)
+    if first_stacked_layer(cfg):
+        params["block0"] = init_block(generator, cfg, 0, device=device)
     params["blocks"] = init_blocks(generator, cfg, device=device)
     return params
 
@@ -55,42 +58,79 @@ def init_params(cfg, generator: torch.Generator, *, device=None) -> dict:
 # Shared trunk
 # ---------------------------------------------------------------------------------
 
+def _stack(trees: list):
+    """Per-layer cache trees stacked on a new leading layers axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _xlstm_trunk(params, cfg, x, *, mode, caches, slots):
+    # the reference's compiled decode (one jit over the unrolled stack)
+    # feeds every norm the f32 residual sum before its bf16 rounding (XLA's
+    # default excess precision); the stream keeps the rounded sum, and its
+    # eager prefill rounds before every norm
+    layers = (caches["blocks"] if caches is not None
+              else [None] * cfg.n_layers)
+    decode = mode == "decode"
+    resid, new_layers = None, []
+    for i, p in enumerate(params["blocks"]):
+        x, resid, nc = xlstm_block_apply(
+            p, x, cfg, i, mode=mode, cache=layers[i], slots=slots,
+            norm_in=resid if decode else None)
+        new_layers.append(nc)
+    x = apply_norm(params["final_norm"], resid if decode else x,
+                   cfg.norm_kind).to(x.dtype)
+    return x, (caches if decode else {"blocks": new_layers})
+
+
 def _trunk(params, cfg, x, *, mode, positions, caches=None, cache_index=None,
            slots=None, max_len: int = 0):
-    """Run all decoder blocks; returns (x, new_caches)."""
-    if isinstance(params["blocks"], list):       # unrolled xLSTM stack
-        # the reference's compiled decode (one jit over the unrolled
-        # stack) feeds every norm the f32 residual sum before its bf16
-        # rounding (XLA's default excess precision); the stream keeps the
-        # rounded sum, and its eager prefill rounds before every norm
-        layers = (caches["blocks"] if caches is not None
-                  else [None] * cfg.n_layers)
-        decode = mode == "decode"
-        resid, new_layers = None, []
-        for i, p in enumerate(params["blocks"]):
-            x, resid, nc = xlstm_block_apply(
-                p, x, cfg, i, mode=mode, cache=layers[i], slots=slots,
-                norm_in=resid if decode else None)
-            new_layers.append(nc)
-        x = apply_norm(params["final_norm"], resid if decode else x,
-                       cfg.norm_kind).to(x.dtype)
-        return x, (caches if decode else {"blocks": new_layers})
-    kv = caches["blocks"]["kv"] if caches is not None else None
-    new_layers = []
-    for i in range(cfg.n_layers):
-        layer_cache = (None if kv is None
-                       else {name: t[i] for name, t in kv.items()})
-        x, nc = block_apply(layer_params(params["blocks"], i), x, cfg,
-                            mode=mode, positions=positions, cache=layer_cache,
-                            cache_index=cache_index, slots=slots,
-                            max_len=max_len)
-        new_layers.append(nc)
+    """Run all decoder blocks; returns (x, new_caches).  A decode updates
+    ``caches`` in place and returns it."""
+    if cfg.family == "ssm":                      # unrolled xLSTM stack
+        return _xlstm_trunk(params, cfg, x, mode=mode, caches=caches,
+                            slots=slots)
+    decode = mode == "decode"
+    kw = dict(mode=mode, positions=positions, cache_index=cache_index,
+              slots=slots, max_len=max_len)
+    new: dict = {}
+    start = 0
+    if "block0" in params:
+        # applied outside the reference's scan: eager in its prefill
+        start = 1
+        x, _, new["block0"] = block_apply(
+            params["block0"], x, cfg, 0,
+            cache=caches["block0"] if decode else None, fused=decode, **kw)
+    blocks = params["blocks"]
+    if isinstance(blocks, list):                 # unrolled (hymba)
+        # the reference's jitted decode over the unrolled stack feeds each
+        # norm the f32 residual sum before its bf16 rounding, as in the
+        # xLSTM stack; its eager prefill rounds
+        resid, layers = None, []
+        for i, p in enumerate(blocks):
+            x, resid, nc = block_apply(
+                p, x, cfg, start + i,
+                cache=caches["blocks"][i] if decode else None, fused=decode,
+                norm_in=resid, keep_f32=decode, **kw)
+            layers.append(nc)
+        new["blocks"] = layers
+        if decode:
+            x = apply_norm(params["final_norm"], resid,
+                           cfg.norm_kind).to(x.dtype)
+            return x, caches
+    else:                                        # scan-stacked
+        layers = []
+        for i in range(cfg.n_layers - start):
+            layer_cache = (layer_params(caches["blocks"], i) if decode
+                           else None)
+            x, _, nc = block_apply(layer_params(blocks, i), x, cfg, start,
+                                   cache=layer_cache, **kw)
+            layers.append(nc)
+        if not decode:
+            new["blocks"] = _stack(layers)
     x = apply_norm(params["final_norm"], x, cfg.norm_kind)
-    if mode == "decode":
-        return x, caches                  # updated in place
-    stacked = {name: torch.stack([c[name] for c in new_layers])
-               for name in new_layers[0]}
-    return x, {"blocks": {"kv": stacked}}
+    return x, (caches if decode else new)
 
 
 def _logits(params, cfg, x):
@@ -108,12 +148,13 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> dict:
-    """The resident decode cache: the dense KV cache (``max_len``
-    positions, ``dtype``), or xLSTM's f32 recurrent state, whose size does
-    not depend on ``max_len``."""
+    """The resident decode cache: the attention layers' KV (or MLA latent)
+    caches of ``max_len`` positions (a sliding layer's ring of its window)
+    in ``dtype``, with hymba's Mamba-2 state beside them; or xLSTM's f32
+    recurrent state, whose size does not depend on ``max_len``."""
     if cfg.family == "ssm":
         return {"blocks": init_layer_states(cfg, batch, device)}
-    return {"blocks": init_stacked_cache(cfg, batch, max_len, dtype, device)}
+    return init_attention_caches(cfg, batch, max_len, dtype, device)
 
 
 def prefill(params, cfg, tokens: torch.Tensor, max_len: int):
@@ -129,10 +170,14 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int):
 
 
 def decode_step(params, cfg, caches, tokens: torch.Tensor,
-                index: torch.Tensor, slots: Optional[torch.Tensor] = None):
+                index: torch.Tensor, slots: Optional[torch.Tensor] = None,
+                max_len: int = 0):
     """One decode step, in place.  tokens: (B,1); index: (B,) current
     lengths; slots: (B,) distinct cache rows the tokens belong to
-    (default: rows 0..B-1, a cache of exactly B rows)."""
+    (default: rows 0..B-1, a cache of exactly B rows); max_len: the
+    length the caller retires a row at (the serving engine's), which lets
+    a sliding layer whose cache holds every position use the paged kernel
+    (0: unknown, every window layer decodes through its ring)."""
     b = tokens.shape[0]
     index = index.reshape(-1).expand(b) if index.numel() == 1 else index
     if slots is None:
@@ -140,7 +185,7 @@ def decode_step(params, cfg, caches, tokens: torch.Tensor,
     x = params["embed"][tokens]
     x, caches = _trunk(params, cfg, x, mode="decode",
                        positions=index[:, None], caches=caches,
-                       cache_index=index, slots=slots)
+                       cache_index=index, slots=slots, max_len=max_len)
     return _logits(params, cfg, x), caches
 
 
@@ -189,8 +234,9 @@ class Model(nn.Module):
         return prefill(self.params, self.cfg, tokens, max_len)
 
     @torch.no_grad()
-    def decode_step(self, caches, tokens, index, slots=None):
-        return decode_step(self.params, self.cfg, caches, tokens, index, slots)
+    def decode_step(self, caches, tokens, index, slots=None, max_len=0):
+        return decode_step(self.params, self.cfg, caches, tokens, index, slots,
+                           max_len)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         return init_cache(self.cfg, batch, max_len, dtype=self.cfg.dtype,

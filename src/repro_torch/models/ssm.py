@@ -1,7 +1,7 @@
-"""Recurrent sequence-mixing blocks: xLSTM's mLSTM and sLSTM.
+"""Recurrent sequence-mixing blocks: xLSTM's mLSTM and sLSTM, and the
+Mamba-2 (SSD) heads of hymba's hybrid blocks.
 
-PyTorch counterpart of the xLSTM half of ``repro.models.ssm``, in its
-parameter layouts.  The mLSTM prefill (``mlstm_chunked``) runs its
+PyTorch counterpart of ``repro.models.ssm``, in its parameter layouts.  The mLSTM prefill (``mlstm_chunked``) runs its
 chunkwise-parallel scan through the chunked mLSTM kernel's wrapper
 (``kernels/mlstm_scan/ops.py``): the hand-written CUDA kernel for tensors on
 the card, its plain version (the reference's per-chunk body, op for op)
@@ -12,7 +12,12 @@ sequential) are plain torch, as the reference has no kernel for them.
 State structures (decode), as the reference's:
   mLSTM: {"C": (B,H,dk,dv), "n": (B,H,dk), "m": (B,H)}, f32
   sLSTM: {"c", "n", "h", "m"}: (B, inner), f32
-Mamba-2 (hymba's SSM heads) is still to port (ROADMAP.md, Queue 1 item 4).
+  Mamba-2: {"ssm": (B,H,dh,N) f32, "conv": (B, conv_width-1, e)}; the
+           empty state's ``conv`` is f32, a prefill returns it in the
+           input's dtype (bf16), and ``_mamba_proj`` casts it back to that
+           dtype before the convolution, as the reference does.
+The Mamba-2 chunked scan (``mamba_chunked``) is jnp code in the reference
+(a ``KERNEL_ssd_scan`` scope, not a Pallas kernel) and plain torch here.
 """
 
 from __future__ import annotations
@@ -214,3 +219,152 @@ def init_slstm_state(b: int, cfg, *, device=None) -> dict:
     zeros = lambda: torch.zeros((b, inner), dtype=F32, device=device)
     return {"c": zeros(), "n": zeros(), "h": zeros(),
             "m": torch.full((b, inner), -1e30, dtype=F32, device=device)}
+
+
+# ---------------------------------------------------------------------------------
+# Mamba-2 / SSD heads (hymba's SSM path)
+# ---------------------------------------------------------------------------------
+
+#: the reference's Mamba-2 prefill chunk (``mamba_chunked(chunk=256)``)
+MAMBA_CHUNK = 256
+
+
+def mamba_dims(cfg) -> tuple[int, int, int, int]:
+    """(e, heads, dh, N): the expanded width, split over the attention
+    heads, and the state width."""
+    e = cfg.ssm_expand * cfg.d_model
+    h = cfg.n_heads
+    return e, h, e // h, cfg.ssm_state
+
+
+def init_mamba(generator, cfg, *, lead: tuple = (), device=None) -> Params:
+    """``lead`` prepends stacked axes (a scan-stacked hybrid tree)."""
+    d = cfg.d_model
+    e, h, dh, n = mamba_dims(cfg)
+
+    def mk(shape, fan_in, dtype=cfg.dtype, **kw):
+        return make_param(generator, shape, fan_in=fan_in, dtype=dtype,
+                          device=device, lead=lead, **kw)
+
+    return {
+        "w_in": mk((d, 2 * e), d),
+        "conv": mk((cfg.conv_width, e), cfg.conv_width),
+        "wB": mk((e, h, n), e),
+        "wC": mk((e, h, n), e),
+        "w_dt": mk((e, h), e, F32),
+        "a_log": mk((h,), None, F32, ones=True),
+        "d_skip": mk((h,), None, F32, ones=True),
+        "w_down": mk((e, d), e),
+    }
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` as the reference computes it:
+    ``max(x, 0) + log1p(exp(-|x|))`` (``F.softplus`` switches to ``x``
+    above a threshold)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _mamba_proj(p, x, cfg, conv_state=None, *, fused: bool = False):
+    """Shared input path: in-proj, causal depthwise conv, gates.  Returns
+    (u (B,S,H,dh), z, B_, C_, dt, new_conv_state).
+
+    ``fused``: the reference's compiled decode feeds the f32 ``dt``
+    product the SiLU's f32 result before its bf16 rounding (XLA drops the
+    round trip of ``u.astype(f32)``); its eager prefill rounds first."""
+    b, s, d = x.shape
+    e, h, dh, _ = mamba_dims(cfg)
+    w = cfg.conv_width
+    up = torch.einsum("bsd,de->bse", x, p["w_in"])
+    u, z = up[..., :e], up[..., e:]
+    hist = (conv_state if conv_state is not None
+            else torch.zeros((b, w - 1, e), dtype=u.dtype, device=x.device))
+    seq = torch.cat([hist.to(u.dtype), u], dim=1)
+    kern = p["conv"]
+    conv = seq[:, 0:s] * kern[0]
+    for i in range(1, w):
+        conv = conv + seq[:, i:i + s] * kern[i]
+    sig = 1 / (1 + torch.exp(-conv))                     # as layers.silu
+    u = conv * sig
+    u_f32 = conv.float() * sig.float() if fused else u.float()
+    new_conv = seq[:, -(w - 1):] if w > 1 else hist
+    B_ = torch.einsum("bse,ehn->bshn", u, p["wB"])
+    C_ = torch.einsum("bse,ehn->bshn", u, p["wC"])
+    dt = softplus(torch.einsum("bse,eh->bsh", u_f32, p["w_dt"]))
+    return u.reshape(b, s, h, dh), z, B_, C_, dt, new_conv
+
+
+def mamba_chunked(p: Params, x: torch.Tensor, cfg, *,
+                  chunk: int = MAMBA_CHUNK, state: Optional[dict] = None):
+    """SSD chunked forward: scalar-per-head decay a^dt, f32 state
+    (B,H,dh,N) carried over chunks of ``chunk`` steps (the prompt padded to
+    a whole chunk, as the reference pads it).  Returns (y, new_state)."""
+    b, s, d = x.shape
+    e, h, dh, n = mamba_dims(cfg)
+    conv_state = state["conv"] if state is not None else None
+    uh, z, B_, C_, dt, new_conv = _mamba_proj(p, x, cfg, conv_state)
+    a = -torch.exp(p["a_log"])                           # (h,) negative rate
+    la = dt * a                                          # (b,s,h) log decay
+    xbar = uh.float() * dt[..., None]                    # dt-weighted input
+    Bf, Cf = B_.float(), C_.float()
+
+    nchunk = -(-s // chunk)
+    pad = nchunk * chunk - s
+    if pad:
+        xbar = F.pad(xbar, (0, 0, 0, 0, 0, pad))
+        Bf = F.pad(Bf, (0, 0, 0, 0, 0, pad))
+        Cf = F.pad(Cf, (0, 0, 0, 0, 0, pad))
+        la = F.pad(la, (0, 0, 0, pad))
+    hst = (state["ssm"] if state is not None
+           else torch.zeros((b, h, dh, n), dtype=F32, device=x.device))
+    tpos = torch.arange(chunk, device=x.device)
+    causal = (tpos[:, None] >= tpos[None, :])[None, :, :, None]
+    outs = []
+    for c in range(nchunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xb, Bb, Cb, lab = xbar[:, sl], Bf[:, sl], Cf[:, sl], la[:, sl]
+        L = torch.cumsum(lab, dim=1)                     # (b,chunk,h)
+        # intra-chunk: scores(t,s) = C_t . B_s * exp(L_t - L_s), s <= t
+        dec = L[:, :, None, :] - L[:, None, :, :]
+        dec = torch.where(causal, dec, -1e30)
+        scores = (torch.einsum("bthn,bshn->bths", Cb, Bb)
+                  * torch.exp(dec).permute(0, 1, 3, 2))
+        intra = torch.einsum("bths,bshv->bthv", scores, xb)
+        inter = torch.einsum("bthn,bhvn->bthv", Cb * torch.exp(L)[..., None],
+                             hst)
+        outs.append(intra + inter)
+        # state to the end of the chunk
+        Ltot = L[:, -1]                                  # (b,h)
+        w_in = torch.exp(Ltot[:, None] - L)              # (b,chunk,h)
+        hst = (hst * torch.exp(Ltot)[..., None, None]
+               + torch.einsum("bshn,bsh,bshv->bhvn", Bb, w_in, xb))
+    y = torch.cat(outs, dim=1)[:, :s]
+    y = y + uh.float() * p["d_skip"][None, None, :, None]
+    y = y.reshape(b, s, e).to(x.dtype) * silu(z)
+    y = torch.einsum("bse,ed->bsd", y, p["w_down"])
+    return y, {"ssm": hst, "conv": new_conv}
+
+
+def mamba_step(p: Params, x: torch.Tensor, cfg, state: dict):
+    """Single-token decode.  x: (B,1,D); O(1) state update."""
+    b = x.shape[0]
+    e, h, dh, n = mamba_dims(cfg)
+    uh, z, B_, C_, dt, new_conv = _mamba_proj(p, x, cfg, state["conv"],
+                                              fused=True)
+    a = -torch.exp(p["a_log"])
+    decay = torch.exp(dt[:, 0] * a)                      # (b,h)
+    xbar = uh[:, 0].float() * dt[:, 0][..., None]        # (b,h,dh)
+    hst = (state["ssm"] * decay[..., None, None]
+           + torch.einsum("bhn,bhv->bhvn", B_[:, 0].float(), xbar))
+    y = torch.einsum("bhn,bhvn->bhv", C_[:, 0].float(), hst)
+    y = y + uh[:, 0].float() * p["d_skip"][None, :, None]
+    y = y.reshape(b, 1, e).to(x.dtype) * silu(z)
+    y = torch.einsum("bse,ed->bsd", y, p["w_down"])
+    return y, {"ssm": hst, "conv": new_conv}
+
+
+def init_mamba_state(b: int, cfg, *, lead: tuple = (), device=None) -> dict:
+    e, h, dh, n = mamba_dims(cfg)
+    return {"ssm": torch.zeros(lead + (b, h, dh, n), dtype=F32, device=device),
+            "conv": torch.zeros(lead + (b, cfg.conv_width - 1, e), dtype=F32,
+                                device=device)}

@@ -1,24 +1,31 @@
-"""Transformer assembly: dense decoders and xLSTM stacks.
+"""Transformer assembly: dense, MoE and MLA decoders, hymba's hybrid
+attention+Mamba-2 blocks with sliding-window ring caches, and xLSTM stacks.
 
-PyTorch counterpart of ``repro.models.transformer``, for the configs this
-package runs: dense GQA decoders with full attention, and xLSTM's
-mLSTM/sLSTM stack.  Dense layers keep the reference's scan-stacked layout
-(each leaf of ``params["blocks"]`` has a leading layers axis) and are
-applied in a Python loop over views; xLSTM's heterogeneous blocks are a
-per-layer list, as the reference unrolls them (``scan_layers=False``).
+PyTorch counterpart of ``repro.models.transformer`` for every decoder-only
+family; encoders and frontends are still to port.  A config with
+``scan_layers`` keeps the reference's scan-stacked layout (each leaf of
+``params["blocks"]`` has a leading layers axis) and is applied in a Python
+loop over views; ``scan_layers=False`` trees (hymba, xLSTM) are per-layer
+lists, as the reference unrolls them.  MoE configs with
+``first_layer_dense`` carry layer 0 apart as ``params["block0"]``.
 
 Cache layout (decode), as the reference builds it, so cache contents
 compare one to one:
-  dense: one tree ``{"k", "v", "pos"}`` stacked over layers, ``k``/``v``
-         (L, B, cap, KV, D) and ``pos`` (L, B, cap).  Decode updates it
-         *in place* and attends over it with the paged-attention kernel.
+  attention: ``{"kv": {"k", "v", "pos"}}`` per layer, ``k``/``v``
+         (B, cap, KV, D) and ``pos`` (B, cap), cap ``min(max_len, window)``;
+         MLA: ``{"kv": {"c", "k_pe", "pos"}}``, the latent (B, cap, dc) and
+         the shared rope key (B, cap, dr); hybrid layers add ``"ssm"``, the
+         Mamba-2 state.  Stacked over layers for a scan-stacked tree, a
+         per-layer list otherwise; ``"block0"`` beside ``"blocks"``.
+         Decode updates it *in place*.
   xLSTM: a list of per-layer ``{"ssm": state}`` trees (``models/ssm.py``).
-         Decode reads the stepping rows' state at ``slots`` and writes the
-         new state back into those rows in place (``index_copy_``).
+Recurrent state (xLSTM, Mamba-2) is read at the stepping rows' ``slots``
+and written back into those rows in place (``index_copy_``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -27,8 +34,10 @@ import torch.nn.functional as F
 from repro_torch.kernels.paged_attention import ops as pa_ops
 
 from . import ssm
-from .layers import (Params, apply_norm, attention_block, init_attention,
-                     init_mlp, init_norm, mlp_block, qkv_projections)
+from .layers import (NEG_INF, Params, apply_norm, attention_block,
+                     init_attention, init_mla, init_mlp, init_moe, init_norm,
+                     mla_block, mla_decode, mlp_block, moe_block,
+                     qkv_projections)
 
 #: tokens per KV page when a layer's resident cache is viewed as pages
 PAGE_SIZE = 16
@@ -44,56 +53,83 @@ def check_supported(cfg) -> None:
             missing.append(f"ssm_kind {cfg.ssm_kind!r}")
         if cfg.scan_layers:
             missing.append("scan-stacked (scan_layers=True) xLSTM trees")
-    elif cfg.family != "dense":
+    elif cfg.family not in ("dense", "moe", "hybrid"):
         missing.append(f"family {cfg.family!r}")
-    if cfg.sliding_window or cfg.global_layers:
-        missing.append("sliding-window ring caches")
-    if cfg.hybrid:
-        missing.append("hybrid attention+SSM blocks")
-    if cfg.use_mla:
-        missing.append("MLA")
-    if cfg.n_routed_experts:
-        missing.append("MoE")
+    if cfg.hybrid and cfg.ssm_kind != "mamba":
+        missing.append(f"hybrid ssm_kind {cfg.ssm_kind!r}")
     if cfg.encoder_layers or cfg.frontend:
         missing.append("encoders and frontends")
-    if cfg.family == "dense" and not cfg.scan_layers:
-        missing.append("unstacked (scan_layers=False) dense trees")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet "
-            f"(ROADMAP.md, Queue 1 item 4)")
+            f"(ROADMAP.md, Queue 1 item 2)")
 
 
 # ---------------------------------------------------------------------------------
-# Block init / apply
+# Block init
 # ---------------------------------------------------------------------------------
 
 def block_kind(cfg, layer_idx: int) -> str:
     """"mlstm" / "slstm" for xLSTM blocks (every ``slstm_every``-th is
-    sLSTM), "dense" otherwise."""
+    sLSTM), "hybrid" for hymba's, "moe" past a dense first layer, "dense"
+    otherwise."""
     if cfg.family == "ssm":
         if cfg.slstm_every and (layer_idx % cfg.slstm_every
                                 == cfg.slstm_every - 1):
             return "slstm"
         return "mlstm"
+    if cfg.hybrid:
+        return "hybrid"
+    if cfg.n_routed_experts and not (layer_idx == 0 and cfg.first_layer_dense):
+        return "moe"
     return "dense"
 
 
+def first_stacked_layer(cfg) -> int:
+    """1 when layer 0 is carried apart as ``block0`` (a dense first layer
+    before MoE layers), else 0."""
+    return 1 if (cfg.n_routed_experts and cfg.first_layer_dense) else 0
+
+
+def init_block(generator, cfg, layer_idx: int, *, lead: tuple = (),
+               device=None) -> Params:
+    """One attention block's parameters (``lead`` stacks them)."""
+    kind = block_kind(cfg, layer_idx)
+
+    def norm(kind_=cfg.norm_kind):
+        return init_norm(generator, cfg.d_model, kind_, cfg.dtype, lead=lead,
+                         device=device)
+
+    p: Params = {"attn_norm": norm()}
+    p["attn"] = (init_mla if cfg.use_mla else init_attention)(
+        generator, cfg, lead=lead, device=device)
+    if kind == "hybrid":
+        p["ssm"] = ssm.init_mamba(generator, cfg, lead=lead, device=device)
+        p["attn_out_norm"] = norm("rmsnorm")
+        p["ssm_out_norm"] = norm("rmsnorm")
+    p["mlp_norm"] = norm()
+    if kind == "moe":
+        p["mlp"] = init_moe(generator, cfg, lead=lead, device=device)
+    else:
+        width = cfg.d_ff if cfg.d_ff else cfg.d_expert * (
+            cfg.moe_top_k + cfg.n_shared_experts)
+        p["mlp"] = init_mlp(generator, cfg, d_ff=width, lead=lead,
+                            device=device)
+    return p
+
+
 def init_blocks(generator, cfg, *, device=None):
-    """All decoder blocks' parameters: stacked on a leading layers axis
-    (dense), or a per-layer list (xLSTM)."""
+    """The decoder blocks after ``block0``: stacked on a leading layers axis
+    (``scan_layers``), or a per-layer list (hymba, xLSTM)."""
     if cfg.family == "ssm":
         return [init_xlstm_block(generator, cfg, i, device=device)
                 for i in range(cfg.n_layers)]
-    lead = (cfg.n_layers,)
-    return {
-        "attn_norm": init_norm(generator, cfg.d_model, cfg.norm_kind,
-                               cfg.dtype, lead=lead, device=device),
-        "attn": init_attention(generator, cfg, lead=lead, device=device),
-        "mlp_norm": init_norm(generator, cfg.d_model, cfg.norm_kind,
-                              cfg.dtype, lead=lead, device=device),
-        "mlp": init_mlp(generator, cfg, lead=lead, device=device),
-    }
+    start = first_stacked_layer(cfg)
+    if cfg.scan_layers:
+        return init_block(generator, cfg, start,
+                          lead=(cfg.n_layers - start,), device=device)
+    return [init_block(generator, cfg, i, device=device)
+            for i in range(start, cfg.n_layers)]
 
 
 def init_xlstm_block(generator, cfg, layer_idx: int, *, device=None) -> Params:
@@ -105,41 +141,112 @@ def init_xlstm_block(generator, cfg, layer_idx: int, *, device=None) -> Params:
 
 
 def layer_params(stacked: Params, i: int) -> Params:
-    """Layer ``i``'s parameters: views into the stacked tree."""
+    """Layer ``i``'s parameters (or cache): views into the stacked tree."""
     if isinstance(stacked, dict):
         return {k: layer_params(v, i) for k, v in stacked.items()}
     return stacked[i]
 
 
-def block_apply(p: Params, x: torch.Tensor, cfg, *, mode: str,
-                positions: torch.Tensor, cache: Optional[dict] = None,
-                cache_index: Optional[torch.Tensor] = None,
-                slots: Optional[torch.Tensor] = None,
-                max_len: int = 0):
-    """Apply one dense block.  Returns (x, new_cache).
+# ---------------------------------------------------------------------------------
+# Block apply
+# ---------------------------------------------------------------------------------
 
-    mode: "prefill" (build this layer's cache of ``max_len`` positions) or
-    "decode" (update ``cache`` in place at ``[slots, cache_index]``).
-    """
-    h = apply_norm(p["attn_norm"], x, cfg.norm_kind)
+def layer_window(cfg, layer_idx: int) -> Optional[int]:
+    """The sliding window of layer ``layer_idx`` (None: full attention)."""
+    if cfg.sliding_window and layer_idx not in cfg.global_layers:
+        return cfg.sliding_window
+    return None
+
+
+def layer_cap(max_len: int, window: Optional[int]) -> int:
+    """Positions a layer's cache holds: a ring of ``window`` when that is
+    shorter than ``max_len``."""
+    return min(max_len, window) if window else max_len
+
+
+def block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
+                mode: str, positions: torch.Tensor,
+                cache: Optional[dict] = None,
+                cache_index: Optional[torch.Tensor] = None,
+                slots: Optional[torch.Tensor] = None, max_len: int = 0,
+                fused: bool = True, norm_in: Optional[torch.Tensor] = None,
+                keep_f32: bool = False):
+    """Apply one attention block (dense, MoE, MLA or hybrid).  Returns
+    (x, resid, new_cache): ``x`` the bf16 residual stream and, with
+    ``keep_f32``, ``resid`` the same sum in f32 before its rounding (else
+    None).
+
+    mode: "prefill" (build this layer's cache for ``max_len`` positions) or
+    "decode" (update ``cache`` in place at ``[slots, cache_index]``;
+    ``max_len`` is the length the caller retires a row at, 0 if unknown:
+    see ``decode_kv``).  ``layer_idx`` picks the block kind and the
+    window; a scan-stacked layer passes the stack's first index, as the
+    reference's ``scan_blocks`` does.
+
+    ``fused``: the reference's compiled block (a scan body, a jitted
+    decode) feeds the MLP norm the f32 residual sum before it is rounded
+    to bf16 (XLA's default excess precision removes that round trip); an
+    eagerly run block (an unrolled prefill, ``block0``'s prefill) rounds
+    it first.  (Its hybrid combine rounds every step either way.)
+    ``norm_in`` is what the attention norm reads (default ``x``): an
+    unrolled compiled decode passes the previous block's f32 ``resid``."""
+    kind = block_kind(cfg, layer_idx)
+    window = layer_window(cfg, layer_idx)
+    h = apply_norm(p["attn_norm"], x if norm_in is None else norm_in,
+                   cfg.norm_kind).to(x.dtype)
+    new_cache: dict = {}
     if mode == "prefill":
-        y, kv = attention_block(p["attn"], h, cfg, positions=positions,
-                                return_kv=True)
-        new_cache = assemble_kv_cache(kv, max_len, positions, cfg.dtype)
+        if cfg.use_mla:
+            y, latents = mla_block(p["attn"], h, cfg, positions=positions,
+                                   return_kv=True)
+            new_cache["kv"] = assemble_mla_cache(
+                latents, layer_cap(max_len, window), positions, cfg.dtype)
+        else:
+            y, kv = attention_block(p["attn"], h, cfg, positions=positions,
+                                    window=window, return_kv=True)
+            new_cache["kv"] = assemble_kv_cache(
+                kv, layer_cap(max_len, window), positions, cfg.dtype)
     else:
-        y = decode_attention(p["attn"], h, cfg, positions=positions,
-                             cache=cache, cache_index=cache_index,
-                             slots=slots)
+        y = decode_kv(p["attn"], h, cfg, positions=positions,
+                      cache=cache["kv"], cache_index=cache_index,
+                      slots=slots, window=window, max_len=max_len)
         new_cache = cache
-    # the reference's compiled (scanned / jitted) block feeds the MLP norm
-    # the f32 residual sum before it is rounded to bf16 (XLA's default
-    # excess precision removes that round trip); the stream keeps the
-    # rounded sum
+
+    if kind == "hybrid":
+        if mode == "decode":
+            ys = _step_rows(ssm.mamba_step, p["ssm"], h, cfg, cache["ssm"],
+                            slots)
+        else:
+            ys, new_cache["ssm"] = ssm.mamba_chunked(p["ssm"], h, cfg)
+        y = 0.5 * (apply_norm(p["attn_out_norm"], y, "rmsnorm")
+                   + apply_norm(p["ssm_out_norm"], ys, "rmsnorm"))
+
     resid = x.float() + y.float()
-    h = apply_norm(p["mlp_norm"], resid, cfg.norm_kind).to(x.dtype)
-    x = resid.to(x.dtype)
-    x = x + mlp_block(p["mlp"], h, cfg)
-    return x, new_cache
+    if fused:
+        h = apply_norm(p["mlp_norm"], resid, cfg.norm_kind).to(x.dtype)
+        x = resid.to(x.dtype)
+    else:
+        x = resid.to(x.dtype)
+        h = apply_norm(p["mlp_norm"], x, cfg.norm_kind)
+    if kind == "moe":
+        y, _ = moe_block(p["mlp"], h, cfg, capacity_factor=cfg.capacity_factor,
+                         no_drop=(mode == "decode"))
+    else:
+        y = mlp_block(p["mlp"], h, cfg)
+    if not keep_f32:
+        return x + y, None, new_cache
+    resid = x.float() + y.float()
+    return resid.to(x.dtype), resid, new_cache
+
+
+def _step_rows(step, p, h, cfg, state: dict, slots: torch.Tensor):
+    """Step the recurrent state of rows ``slots`` and write it back in place
+    (slots must be distinct).  Returns the step's output."""
+    rows = slots.to(torch.int64)
+    y, new = step(p, h, cfg, {k: t[rows] for k, t in state.items()})
+    for name, t in state.items():
+        t.index_copy_(0, rows, new[name].to(t.dtype))
+    return y
 
 
 def xlstm_block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
@@ -161,12 +268,8 @@ def xlstm_block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
     h = apply_norm(p["norm"], x if norm_in is None else norm_in,
                    cfg.norm_kind).to(x.dtype)
     if mode == "decode":
-        full = cache["ssm"]
-        rows = slots.to(torch.int64)
         step = ssm.mlstm_step if kind == "mlstm" else ssm.slstm_step
-        y, new = step(p["mix"], h, cfg, {k: t[rows] for k, t in full.items()})
-        for name, t in full.items():
-            t.index_copy_(0, rows, new[name].to(t.dtype))
+        y = _step_rows(step, p["mix"], h, cfg, cache["ssm"], slots)
         new_cache = cache
     else:
         fwd = ssm.mlstm_chunked if kind == "mlstm" else ssm.slstm_forward
@@ -180,22 +283,47 @@ def xlstm_block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
 # KV cache plumbing
 # ---------------------------------------------------------------------------------
 
+def _pos_column(positions: torch.Tensor) -> torch.Tensor:
+    return (positions[0] if positions.dim() > 1 else positions).to(torch.int32)
+
+
 def assemble_kv_cache(kv: tuple, cap: int, positions: torch.Tensor,
                       dtype) -> dict:
     """One-shot prefill cache write: pad computed K/V to the cache length,
-    with ``pos`` -1 past the prompt."""
+    ``pos`` -1 past the prompt.  A prompt longer than a ring's ``cap``
+    keeps its last ``cap`` positions in order, slot ``j`` holding position
+    ``s - cap + j``, as the reference lays the ring out.  (Decode then
+    writes position ``idx`` at slot ``idx % cap``: when ``s % cap != 0``
+    that overwrites a position still inside the window, the reference's
+    own layout fault, copied so tokens match.)"""
     k, v = kv
-    s = k.shape[1]
+    b, s = k.shape[0], k.shape[1]
+    pos = _pos_column(positions)
+    if s > cap:
+        newk, newv = k[:, -cap:].to(dtype), v[:, -cap:].to(dtype)
+        newpos = pos[-cap:]
+    else:
+        newk = F.pad(k.to(dtype), (0, 0, 0, 0, 0, cap - s))
+        newv = F.pad(v.to(dtype), (0, 0, 0, 0, 0, cap - s))
+        newpos = torch.cat([pos, torch.full((cap - s,), -1, dtype=torch.int32,
+                                            device=pos.device)])
+    return {"k": newk.contiguous(), "v": newv.contiguous(),
+            "pos": newpos.expand(b, cap).contiguous()}
+
+
+def assemble_mla_cache(latents: tuple, cap: int, positions: torch.Tensor,
+                       dtype) -> dict:
+    """MLA's prefill cache: the latents padded to the cache length."""
+    c, k_pe = latents
+    b, s = c.shape[0], c.shape[1]
     if s > cap:
         raise ValueError(f"prompt of {s} tokens does not fit a cache of {cap}")
-    pos = positions[0] if positions.dim() > 1 else positions  # (S,)
-    newk = F.pad(k.to(dtype), (0, 0, 0, 0, 0, cap - s))
-    newv = F.pad(v.to(dtype), (0, 0, 0, 0, 0, cap - s))
-    newpos = torch.cat([pos.to(torch.int32),
-                        torch.full((cap - s,), -1, dtype=torch.int32,
-                                   device=pos.device)])
-    return {"k": newk, "v": newv,
-            "pos": newpos.expand(k.shape[0], cap).contiguous()}
+    pos = _pos_column(positions)
+    newpos = torch.cat([pos, torch.full((cap - s,), -1, dtype=torch.int32,
+                                        device=pos.device)])
+    return {"c": F.pad(c.to(dtype), (0, 0, 0, cap - s)),
+            "k_pe": F.pad(k_pe.to(dtype), (0, 0, 0, cap - s)),
+            "pos": newpos.expand(b, cap).contiguous()}
 
 
 def page_size_for(cap: int) -> int:
@@ -217,6 +345,30 @@ def slot_block_tables(slots: torch.Tensor, cap: int,
                            device=slots.device)[None, :])
 
 
+def uses_ring(cap: int, window: Optional[int], max_len: int) -> bool:
+    """Whether a layer decodes through the ring (``ring_decode_attention``):
+    its cache is a window shorter than ``max_len``, or, with ``max_len``
+    unknown (0), a window at all.  Every other layer holds every position a
+    row reaches, and its window cannot bite (``decode_attention``)."""
+    return window is not None and cap == window and (
+        max_len == 0 or cap < max_len)
+
+
+def decode_kv(p, h, cfg, *, positions, cache, cache_index, slots, window,
+              max_len):
+    """One attention layer's decode: MLA's absorbed form, the ring, or the
+    paged kernel."""
+    if cfg.use_mla:
+        return mla_decode(p, h, cfg, positions=positions, cache=cache,
+                          cache_index=cache_index, slots=slots)
+    if uses_ring(cache["k"].shape[1], window, max_len):
+        return ring_decode_attention(p, h, cfg, positions=positions,
+                                     cache=cache, cache_index=cache_index,
+                                     slots=slots, window=window)
+    return decode_attention(p, h, cfg, positions=positions, cache=cache,
+                            cache_index=cache_index, slots=slots)
+
+
 def decode_attention(p, h, cfg, *, positions, cache, cache_index, slots):
     """Decode attention for one new token per packed row, *in place*.
 
@@ -228,12 +380,15 @@ def decode_attention(p, h, cfg, *, positions, cache, cache_index, slots):
     arange(cap/page)`` and ``lengths = index + 1``.  Slots must be
     distinct: duplicate rows in an in-place write have no defined winner.
 
-    For full-attention layers this selects exactly the keys of the
-    reference's ``_ring_decode_attention`` ``pos`` mask (``0 <= pos <=
-    index``): prefill sets ``pos`` to -1 past the prompt, and decode writes
-    at ``index % cap == index`` because the engine retires a request at
-    ``index >= max_len - 1``.  ``pos`` is kept up to date all the same, so
-    cache contents compare with the reference's.
+    This selects exactly the keys of the reference's
+    ``_ring_decode_attention`` mask (``0 <= pos <= index``, and ``pos >
+    index - window`` in a windowed layer) whenever the cache holds every
+    position a row reaches: prefill sets ``pos`` to -1 past the prompt, and
+    decode writes at ``index % cap == index`` because the engine retires a
+    request at ``index >= max_len - 1`` and ``cap == max_len``.  In a
+    windowed layer ``cap == max_len`` means ``max_len <= window``, so
+    ``index - window < 0`` and the window cannot bite.  ``pos`` is kept up
+    to date all the same, so cache contents compare with the reference's.
     """
     b = h.shape[0]
     q, k, v = qkv_projections(p, h, cfg, positions)
@@ -257,18 +412,90 @@ def decode_attention(p, h, cfg, *, positions, cache, cache_index, slots):
                         p["wo"])
 
 
+def ring_decode_attention(p, h, cfg, *, positions, cache, cache_index, slots,
+                          window):
+    """Decode attention against a ring cache, *in place*, as the reference's
+    ``_ring_decode_attention``: row ``i`` writes position
+    ``cache_index[i]`` at slot ``cache_index[i] % cap`` of cache row
+    ``slots[i]`` and attends over that row's keys whose ``pos`` is written,
+    not in the future and inside the window.  The attention is the
+    reference's jnp arithmetic (f32 products and softmax), not a kernel."""
+    b = h.shape[0]
+    q, k, v = qkv_projections(p, h, cfg, positions)
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    cap = ck.shape[1]
+    idx = cache_index.to(torch.int64)
+    rows = slots.to(torch.int64)
+    slot = idx % cap
+    ck[rows, slot] = k[:, 0].to(ck.dtype)
+    cv[rows, slot] = v[:, 0].to(cv.dtype)
+    cpos[rows, slot] = cache_index.to(cpos.dtype)
+
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    kk = ck[rows].float().repeat_interleave(n_rep, dim=2)
+    vv = cv[rows].float().repeat_interleave(n_rep, dim=2)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * scale
+    qp = idx.view(b, 1, 1, 1)
+    kp = cpos[rows][:, None, None, :].to(torch.int64)
+    mask = (kp >= 0) & (kp <= qp) & (kp > qp - window)
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vv).to(h.dtype)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
 # ---------------------------------------------------------------------------------
 # Cache init
 # ---------------------------------------------------------------------------------
 
-def init_stacked_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
-                       device=None) -> dict:
-    """Zeroed KV cache stacked over layers, ``pos`` -1 everywhere."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"kv": {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full(shape[:3], -1, dtype=torch.int32, device=device)}}
+def init_layer_cache(cfg, layer_idx: int, batch: int, max_len: int,
+                     dtype=torch.bfloat16, *, lead: tuple = (),
+                     device=None) -> dict:
+    """Zeroed decode cache of one attention layer (``lead`` stacks it),
+    ``pos`` -1 everywhere; a hybrid layer adds the empty Mamba-2 state."""
+    cap = layer_cap(max_len, layer_window(cfg, layer_idx))
+    rows = lead + (batch, cap)
+
+    def zeros(*tail):
+        return torch.zeros(rows + tail, dtype=dtype, device=device)
+
+    if cfg.use_mla:
+        kv = {"c": zeros(cfg.kv_lora_rank), "k_pe": zeros(cfg.rope_head_dim)}
+    else:
+        kv = {"k": zeros(cfg.n_kv_heads, cfg.head_dim),
+              "v": zeros(cfg.n_kv_heads, cfg.head_dim)}
+    kv["pos"] = torch.full(rows, -1, dtype=torch.int32, device=device)
+    c = {"kv": kv}
+    if block_kind(cfg, layer_idx) == "hybrid":
+        c["ssm"] = ssm.init_mamba_state(batch, cfg, lead=lead, device=device)
+    return c
+
+
+def init_attention_caches(cfg, batch: int, max_len: int,
+                          dtype=torch.bfloat16, device=None) -> dict:
+    """``{"blocks": ..., ["block0": ...]}`` of an attention decoder."""
+    start = first_stacked_layer(cfg)
+    caches: dict = {}
+    if start:
+        caches["block0"] = init_layer_cache(cfg, 0, batch, max_len, dtype,
+                                            device=device)
+    if cfg.scan_layers:
+        # the reference stacks per-layer caches, which fails when their
+        # lengths differ (a global layer among sliding ones)
+        caps = {layer_cap(max_len, layer_window(cfg, i))
+                for i in range(start, cfg.n_layers)}
+        if len(caps) != 1:
+            raise ValueError(f"{cfg.name}: a scan-stacked tree cannot hold "
+                             f"caches of lengths {sorted(caps)}")
+        caches["blocks"] = init_layer_cache(
+            cfg, start, batch, max_len, dtype, lead=(cfg.n_layers - start,),
+            device=device)
+    else:
+        caches["blocks"] = [init_layer_cache(cfg, i, batch, max_len, dtype,
+                                             device=device)
+                            for i in range(start, cfg.n_layers)]
+    return caches
 
 
 def init_layer_states(cfg, batch: int, device=None) -> list:

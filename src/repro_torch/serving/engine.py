@@ -24,8 +24,8 @@ Differences from the reference:
   * the model owns its weights (``models.model.Model``); ``seed`` seeds
     only the sampling generator (``seed + 1``, as the reference's key);
   * decode writes K/V in place and the paged kernel reads the resident
-    cache (xLSTM: the stepping rows' state is read at their slots and
-    written back in place), so there is no gather/scatter of whole caches
+    cache (xLSTM, Mamba-2: the stepping rows' state is read at their slots
+    and written back in place), so there is no gather/scatter of whole caches
     and no power-of-two bucket: the packed step runs at exactly the packed
     width (accounting, which prices that width in both packages, is
     unchanged);
@@ -313,24 +313,26 @@ class ServingEngine:
         self.active[slot] = req
 
     def _insert_slot_cache(self, pre_cache, slot: int) -> None:
-        """Copy a one-row prefill cache into ``slot`` of the resident cache:
-        the slot axis is 1 for the dense KV cache's layer-stacked leaves and
-        0 for xLSTM's per-layer state leaves."""
-        stacked = self.cfg.scan_layers
-
-        def walk(full, one):
+        """Copy a one-row prefill cache into ``slot`` of the resident cache,
+        every top-level entry (``block0`` too): the slot axis is 1 for the
+        leaves of a scan-stacked config's ``blocks`` and 0 elsewhere.  A
+        leaf the prefill returns narrower (Mamba-2's bf16 conv history) is
+        widened to the resident dtype, as the reference's ``.at[].set``
+        does."""
+        def walk(full, one, stacked: bool):
             if isinstance(full, dict):
                 for key in full:
-                    walk(full[key], one[key])
+                    walk(full[key], one[key], stacked)
             elif isinstance(full, list):
                 for f, o in zip(full, one):
-                    walk(f, o)
+                    walk(f, o, stacked)
             elif stacked:
                 full[:, slot].copy_(one[:, 0])
             else:
                 full[slot].copy_(one[0])
 
-        walk(self.caches["blocks"], pre_cache["blocks"])
+        for key, sub in self.caches.items():
+            walk(sub, pre_cache[key], self.cfg.scan_layers and key == "blocks")
 
     def _release(self, req: Request, *, state: str = "finished") -> None:
         if req.slot >= 0:
@@ -474,7 +476,8 @@ class ServingEngine:
         self._whole_batch_barrier(slots)
 
         logits, self.caches = self.model.decode_step(
-            self.caches, tokens_dev, index_dev, self._all_slots)
+            self.caches, tokens_dev, index_dev, self._all_slots,
+            max_len=self.max_len)
         if self.compute is not None:
             if deferred:
                 charge = self.compute.decode_charge_masked(
@@ -534,7 +537,8 @@ class ServingEngine:
         self._whole_batch_barrier(slots)
 
         logits, self.caches = self.model.decode_step(
-            self.caches, tokens_dev, index_dev, slots_dev)
+            self.caches, tokens_dev, index_dev, slots_dev,
+            max_len=self.max_len)
 
         if self.compute is not None:
             charge = self.compute.decode_charge_packed(

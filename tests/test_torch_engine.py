@@ -4,7 +4,8 @@ With shared weights the port's ``ServingEngine`` and the reference's give
 identical greedy token streams and identical virtual-clock stats under
 every policy, for the packed and the dense step, for the dense olmo-1b
 smoke decoder and the xlstm-1.3b smoke stack (with ``slstm_every=2``, so
-it has an sLSTM block); the port's harness
+it has an sLSTM block), and for the packed step of the hymba-1.5b,
+deepseek-moe-16b and deepseek-v2-lite-16b smoke models; the port's harness
 reproduces the checked-in golden tapes under ``tests/golden/regen.py``'s
 comparison; one call sequence through both gateways gives equal tapes.
 """
@@ -109,15 +110,15 @@ def shared_xlstm():
     return jcfg, jmodel, Model(tcfg, params=tparams, device="cpu")
 
 
-def _engines_agree(shared, policy, packed):
+def _engines_agree(shared, policy, packed, max_len=48):
     jcfg, jmodel, model = shared
     prompts = _prompts(jcfg.vocab_size)
     jengine = JEngine(
-        jmodel, max_batch=4, max_len=48, policy=JPolicy(policy), cc_on=True,
-        seed=0, defaults=dataclasses.replace(j_defaults(True),
-                                             packed_decode=packed))
+        jmodel, max_batch=4, max_len=max_len, policy=JPolicy(policy),
+        cc_on=True, seed=0, defaults=dataclasses.replace(
+            j_defaults(True), packed_decode=packed))
     tengine = ServingEngine(
-        model, max_batch=4, max_len=48, policy=SchedulingPolicy(policy),
+        model, max_batch=4, max_len=max_len, policy=SchedulingPolicy(policy),
         cc_on=True, seed=0, device="cpu",
         defaults=dataclasses.replace(cc_aware_defaults(True),
                                      packed_decode=packed))
@@ -140,6 +141,36 @@ def test_engine_matches_reference(shared, policy, packed):
 @pytest.mark.parametrize("policy", POLICIES)
 def test_xlstm_engine_matches_reference(shared_xlstm, policy, packed):
     _engines_agree(shared_xlstm, policy, packed)
+
+
+#: the slice's families and each one's engine length: hymba's at 96, past
+#: its smoke window of 64, so its sliding layer decodes through the ring
+#: (every resident slot's Mamba-2 state stepped in place) beside a global
+#: layer on the paged kernel; MoE after a dense ``block0``; MLA's absorbed
+#: decode over the latent cache
+FAMILIES = {"hymba-1.5b": 96, "deepseek-moe-16b": 48,
+            "deepseek-v2-lite-16b": 48}
+
+
+@pytest.fixture(scope="module", params=list(FAMILIES))
+def shared_family(request):
+    jcfg = smoke_config(all_configs()[request.param])
+    tcfg = t_smoke(get_config(request.param))
+    jmodel = JModel(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+    return jcfg, jmodel, Model(tcfg, params=tparams, device="cpu")
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_family_engine_matches_reference(shared_family, policy):
+    """Tokens, step traces and ``stats()`` equal the reference engine's,
+    which shares the weights (the packed step; ``block0`` inserted with
+    the stacked blocks, hymba's bf16 conv history widened into the
+    resident f32 state)."""
+    _engines_agree(shared_family, policy, True,
+                   max_len=FAMILIES[shared_family[0].name.removesuffix(
+                       "-smoke")])
 
 
 # ---------------------------------------------------------------------------------
