@@ -22,7 +22,15 @@ and loads them back through the port's ``PooledLoader`` (full width,
 int8 weight-only pricing, TP 4; the loaded model must serve the in-memory
 model's tokens; pageable and page-locked uploads timed beside it), serves
 it from a one-replica cluster at TP 1, 2, 4 and 8 (tokens identical,
-P2P only above TP 1), checks that each path went through its kernels
+P2P only above TP 1), trains full-width olmo-1b through
+``launch/train.py``'s path (torch autograd over the train mode: no kernel
+launched; the train-mode logits held to the flash path's; memorisation of
+one batch; an async checkpoint of the full state restored bit-equal),
+serves full-width seamless-m4t-medium model-level over stub frames (its
+encoder and cross attention on the flash kernel, decode on the paged
+kernel; trained too, gradients reaching its encoder and cross attention)
+and internvl2-76b at 8 of its 80 layers after a stub patch prefix,
+checks that each path went through its kernels
 (launch counters: flash + paged for the dense models and the clusters,
 the chunked mLSTM scan for xlstm-1.3b, dequant once per quantized
 restore) and that its crossing tapes obey the bridge law, profiles a
@@ -40,7 +48,8 @@ GEMM; the mLSTM kernel at the longest prompt and summed over one main
 path run's prefills; the dequant kernel at a restore's shape, one list
 call against 32 single calls; flash and paged at qwen1.5-4b's,
 qwen3p6-27b's and qwen3-32b's head layouts; flash at deepseek-v2-lite's
-D = 192 and at hymba's windowed layout).  It prints
+D = 192, at hymba's windowed layout and at seamless-m4t-medium's cross
+attention and encoder).  It prints
 the card's name and power limit, one ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the repository's ``src`` beside it, it exits non-zero and prints
@@ -120,6 +129,27 @@ TP = dict(degrees=(1, 2, 4, 8), partition_size=8, max_batch=8, max_len=1024,
 #: kernel over a cache of ``max_len``
 RING = dict(max_batch=8, max_len=2048, prompt_lens=[1536, 1100, 300],
             new_tokens=16)
+#: the training phase: full-width olmo-1b through ``launch/train.py``'s
+#: path (the data pipeline's batches, ``TrainLoop``, AdamW in place) for
+#: ``steps`` at ``batch`` x ``seq`` (``lr``: at 1e-3 the random-weight model
+#: spikes to a loss of 17.5 on its second step); then ``memorise_steps`` on
+#: one repeated batch at ``memorise_lr``, where the loss must fall by
+#: ``memorise_drop``; then one async
+#: checkpoint of the full state with ``pending_steps`` steps taken while it
+#: is written
+TRAIN = dict(steps=20, batch=8, seq=512, lr=3e-4, memorise_steps=10,
+             memorise_lr=1e-3, memorise_drop=1.0, pending_steps=2)
+#: seamless-m4t-medium at full width: ``batch`` requests of the frontend's
+#: 512 stub frames and ``prompt_len`` tokens, ``new_tokens`` greedy tokens
+#: (model-level: the serving engine feeds only tokens, as the reference's
+#: does); then ``train_steps`` at ``train_batch`` x ``train_seq``
+ENCDEC = dict(batch=8, prompt_len=64, new_tokens=32, train_steps=5,
+              train_batch=4, train_seq=128)
+#: internvl2-76b at full width and ``n_layers`` of its 80 (141 GB of
+#: weights at full depth fit no card): ``batch`` requests of the frontend's
+#: 256 stub patch embeddings and ``prompt_len`` tokens, ``new_tokens``
+#: greedy tokens
+VLM = dict(n_layers=8, batch=4, prompt_len=64, new_tokens=32)
 #: the faulted restores' plan: restore corruption only, at p 0.5.  Seed 1's
 #: first two restore-corruption draws (0.355, 0.031) fall below 0.5, so a
 #: restore redoes twice (the restore policy's cap) on either path
@@ -560,12 +590,18 @@ def phase_dequant(gen) -> float:
     return worst
 
 
-def _prefill_and_decode(model, prompt_len: int) -> torch.Tensor:
-    """A ``prompt_len``-token prefill and four teacher-forced decode
+def _prefill_and_decode(model, prompt_len: int,
+                        frontend: dict = None) -> torch.Tensor:
+    """A ``prompt_len``-token prefill (with an encoder-decoder's frames or
+    a vlm's patch embeddings, ``frontend``) and four teacher-forced decode
     steps; all their logits, flattened, in f32."""
     prompt = torch.arange(1, prompt_len + 1, device=DEVICE,
                           dtype=torch.int32)[None]
-    logits, cache, idx = model.prefill(prompt, prompt_len + 28)
+    frontend = frontend or {}
+    prefix = 0 if "patch_embeds" not in frontend else \
+        frontend["patch_embeds"].shape[1]
+    logits, cache, idx = model.prefill(prompt, prefix + prompt_len + 28,
+                                       **frontend)
     out = [logits]
     for i, t in enumerate((5, 6, 7, 8)):
         out.append(model.decode_step(
@@ -657,10 +693,13 @@ def _paged_sdpa(q, k_pages, v_pages, block_tables, lengths):
 
 
 def _with_attention(model, flash, paged, calls=None,
-                    prompt_len: int = 100) -> torch.Tensor:
-    """``_prefill_and_decode(model, prompt_len)`` with ``flash`` and
-    ``paged`` in the attention kernels' places; with ``calls``, every
-    call's inputs are kept there as ("flash" | "paged", args, kwargs)."""
+                    prompt_len: int = 100, frontend: dict = None
+                    ) -> torch.Tensor:
+    """``_prefill_and_decode(model, prompt_len, frontend)`` with ``flash``
+    and ``paged`` in the attention kernels' places (every flash call: an
+    encoder's, the decoder's self and cross attention); with ``calls``,
+    every call's inputs are kept there as ("flash" | "paged", args,
+    kwargs)."""
     from repro_torch.models import layers, transformer
     core, kernel = layers.attention_core, transformer.pa_ops.paged_attention
 
@@ -678,18 +717,24 @@ def _with_attention(model, flash, paged, calls=None,
     layers.attention_core = flash_kept
     transformer.pa_ops.paged_attention = paged_kept
     try:
-        return _prefill_and_decode(model, prompt_len)
+        return _prefill_and_decode(model, prompt_len, frontend)
     finally:
         layers.attention_core, transformer.pa_ops.paged_attention = core, kernel
 
 
-def phase_model_check(model, prompt_len: int = 100) -> None:
+def phase_model_check(model, prompt_len: int = 100,
+                      frontend: dict = None) -> None:
     """An attention model (the dense ones, hymba-1.5b, deepseek-moe-16b,
-    deepseek-v2-lite-16b) with its kernels against the same model with the
-    kernels' plain versions swapped in, on the card: a ``prompt_len``-token
-    prefill and four teacher-forced decode steps (an MLA model's decode is
-    absorbed attention in torch and makes no paged call; hymba's at 1536
-    and 1100 tokens decodes its sliding layers through their rings).
+    deepseek-v2-lite-16b, seamless-m4t-medium, internvl2-76b) with its
+    kernels against the same model with the kernels' plain versions
+    swapped in, on the card: a ``prompt_len``-token prefill (with
+    ``frontend``: an encoder-decoder's frames, whose encoder and cross
+    attention run the flash kernel too, or a vlm's patch prefix) and four
+    teacher-forced decode steps (an MLA model's decode is absorbed
+    attention in torch and makes no paged call; hymba's at 1536 and 1100
+    tokens decodes its sliding layers through their rings; an
+    encoder-decoder's cross attention decodes on the flash kernel with one
+    query row).
 
     (1) Every flash and paged call of the plain run, on its own inputs (the
     model's activations and cache), the kernel against the plain version
@@ -706,14 +751,14 @@ def phase_model_check(model, prompt_len: int = 100) -> None:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    kernel = _prefill_and_decode(model, prompt_len)
+    kernel = _prefill_and_decode(model, prompt_len, frontend)
     calls = []
     plain = _with_attention(model, flash_attention_ref, paged_attention_ref,
-                            calls, prompt_len)
+                            calls, prompt_len, frontend)
     exact = _with_attention(model, _flash_f64, _paged_f64,
-                            prompt_len=prompt_len)
+                            prompt_len=prompt_len, frontend=frontend)
     sdpa = _with_attention(model, _flash_sdpa, _paged_sdpa,
-                           prompt_len=prompt_len)
+                           prompt_len=prompt_len, frontend=frontend)
     worst = {"flash": [0.0, 0.0, 0], "paged": [0.0, 0.0, 0]}
     for kind, args, kw in calls:
         fn, ref = ((fa.flash_attention, flash_attention_ref)
@@ -727,8 +772,13 @@ def phase_model_check(model, prompt_len: int = 100) -> None:
     rel, floor = _rel(kernel, plain), _rel(exact, plain)
     limit = max(MODEL_REL_L2, MODEL_FLOOR_FACTOR * floor)
     finite = bool(torch.isfinite(kernel).all())
-    print(f"model check ({model.cfg.name}, {prompt_len}-token prefill + 4 "
-          f"decode steps): every attention call on its own inputs, kernel vs "
+    what = ""
+    if frontend:
+        what = " with " + ", ".join(f"{k} {tuple(v.shape)}"
+                                    for k, v in frontend.items())
+    print(f"model check ({model.cfg.name}, {prompt_len}-token prefill{what} "
+          f"+ 4 decode steps): every attention call on its own inputs, "
+          f"kernel vs "
           f"plain "
           f"version: " + ", ".join(
               f"{k} {n} calls, worst max_abs_err {a:.3g} rel_l2 {r:.3g}"
@@ -819,15 +869,18 @@ def phase_xlstm_model_check(model) -> None:
           f"another f32 ordering of the plain version does ({floor})")
 
 
-def init_model(arch: str):
-    """Full-width ``arch`` (an attention decoder) on the card, random
+def init_model(arch: str, cache: tuple = None, **over):
+    """Full-width ``arch`` (an attention model) on the card, random
     weights from seed 0; prints its shape, parameters and bytes, the cache
-    the main path holds (``MAIN``'s slots and length: KV, MLA latents, ring
-    caches, Mamba-2 state), the init's wall time and the peak memory
-    allocated by the init."""
+    the main path holds (``MAIN``'s slots and length, or ``cache`` =
+    (slots, length, encoder length): KV, MLA latents, ring caches, Mamba-2
+    state, cross K/V), the init's wall time and the peak memory allocated
+    by the init.  ``over`` replaces config fields (a depth cut)."""
+    import dataclasses
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import Model, init_cache
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **over)
+    slots, length, enc_len = cache or (MAIN["max_batch"], MAIN["max_len"], 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, seed=0, device=DEVICE)
@@ -835,9 +888,9 @@ def init_model(arch: str):
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in model.buffers())
     p_bytes = sum(t.numel() * t.element_size() for t in model.buffers())
-    cache = init_cache(cfg, MAIN["max_batch"], MAIN["max_len"], cfg.dtype,
-                       device="meta")
-    kv_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache))
+    kv = init_cache(cfg, slots, length, cfg.dtype, device="meta",
+                    enc_len=enc_len)
+    kv_bytes = sum(t.numel() * t.element_size() for t in _leaves(kv))
     family = ""
     if cfg.hybrid:
         family = (f"; hybrid: Mamba-2 (e {cfg.ssm_expand * cfg.d_model}, "
@@ -852,14 +905,24 @@ def init_model(arch: str):
         family += (f"; MLA: latent {cfg.kv_lora_rank}, rope "
                    f"{cfg.rope_head_dim}, nope {cfg.nope_head_dim}, v "
                    f"{cfg.v_head_dim}")
+    if cfg.encoder_layers:
+        family += (f"; encoder-decoder: {cfg.encoder_layers} encoder layers, "
+                   f"{cfg.frontend} frontend stub of {cfg.frontend_tokens} "
+                   f"frames, cross attention in every decoder layer")
+    if cfg.family == "vlm":
+        family += (f"; vision-language: {cfg.frontend_tokens} stub patch "
+                   f"embeddings before the tokens")
+    if over:
+        family += f"; reduced: {over} (published {get_config(arch).n_layers})"
     print(f"{arch} at full width: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv_heads} KV) of "
           f"{cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.mlp_kind}), vocab "
           f"{cfg.vocab_size}, qkv_bias {cfg.qkv_bias}, qk_norm "
           f"{cfg.qk_norm}, tied {cfg.tie_embeddings}{family}; {n_params} "
           f"parameters ({cfg.param_count()} without the norms' scales), "
-          f"{p_bytes} bytes; decode cache of {MAIN['max_batch']} slots of "
-          f"{MAIN['max_len']} {kv_bytes} bytes; init {init_s:.1f} s, peak "
+          f"{p_bytes} bytes; decode cache of {slots} slots of "
+          f"{length}{f' (+ {enc_len} encoder positions)' if enc_len else ''} "
+          f"{kv_bytes} bytes; init {init_s:.1f} s, peak "
           f"allocated {torch.cuda.max_memory_allocated()} bytes of "
           f"{torch.cuda.get_device_properties(0).total_memory}")
     return model
@@ -1155,6 +1218,469 @@ def phase_hymba_ring(model) -> dict:
           f"{same}")
     check(same, "ring: the policies' tokens differ")
     return launches
+
+
+# ---------------------------------------------------------------------------------
+# training and the encoder-decoder / vision families
+# ---------------------------------------------------------------------------------
+
+def _launch_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _zero_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _train_sections(step, params, state, batch) -> dict:
+    """Where a train step's time goes: ``step`` (``make_train_step``'s
+    closure, whose sections are marked ``train/forward``,
+    ``train/backward`` and ``train/optimizer``) runs once timed, after a
+    synchronize, for the step's wall, then once under the profiler.  A
+    device event belongs to the section whose host range holds the host
+    op that launched it (the profiler lists each op's device events as
+    its ``kernels``, and again on a runtime call that shares the op's id:
+    each id is read once); the device time no op in a section claims is
+    counted apart.  The idle share is what the device leaves of the
+    unprofiled step's wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = ("train/forward", "train/backward", "train/optimizer")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, state, batch)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, state, batch)
+        torch.cuda.synchronize()
+    events = prof.events()
+    ranges = {n: [e.time_range for e in events if e.name == n
+                  and e.device_type != DeviceType.CUDA] for n in names}
+    busy = dict.fromkeys(names, 0.0)
+    total = 0.0
+    by_name: dict = {}
+    seen = set()
+    for e in events:
+        if e.name in names:
+            continue
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            total += us
+            n_us = by_name.setdefault(e.name[:60], [0, 0.0])
+            n_us[0] += 1
+            n_us[1] += us
+        elif e.kernels and e.id not in seen:
+            seen.add(e.id)
+            at = e.time_range.start
+            for name in names:
+                if any(r.start <= at <= r.end for r in ranges[name]):
+                    busy[name] += sum(k.duration for k in e.kernels)
+                    break
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return dict(wall_us=wall_us, busy_us=total,
+                other_us=total - sum(busy.values()), top=top,
+                sections={n.split("/")[1]: (busy[n], sum(
+                    r.elapsed_us() for r in ranges[n]) or None)
+                          for n in names},
+                idle=1 - total / wall_us if total else None)
+
+
+def _all_position_logits(model, tokens, **frontend) -> torch.Tensor:
+    """The prefill-mode trunk (the flash kernel, no cache kept) over a
+    whole batch, logits at every position, in f32."""
+    from repro_torch.models import model as model_mod
+    with torch.no_grad():
+        x, pos, enc, prefix = model_mod._assemble_inputs(
+            model.params, model.cfg, tokens, **frontend)
+        x, _, _ = model_mod._trunk(model.params, model.cfg, x,
+                                   mode="prefill", positions=pos,
+                                   max_len=x.shape[1], enc_out=enc)
+        return model_mod._logits(model.params, model.cfg,
+                                 x[:, prefix:]).float()
+
+
+def phase_train_vs_kernels(model, tokens) -> None:
+    """The training path and the serving path compute one model: on
+    ``tokens``, the train-mode logits (``models.model.forward``: blockwise
+    torch attention, autograd on) and the prefill-mode logits (the flash
+    kernel) each against the prefill-mode logits with the kernel's plain
+    version swapped in, within phase_model_check's logits limit
+    (max(MODEL_REL_L2, MODEL_FLOOR_FACTOR x exact attention's distance))."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import layers
+    from repro_torch.models.model import forward
+    cfg = model.cfg
+    _zero_counts()
+    with torch.enable_grad():
+        logits, _ = forward(model.params, cfg, {"tokens": tokens})
+        check(logits.requires_grad, "train mode built no autograd graph")
+        train = logits.detach().float()
+    del logits
+    train_launches = _launch_counts()
+    kernel = _all_position_logits(model, tokens)
+    core = layers.attention_core
+    out = {}
+    for name, fn in (("plain", flash_attention_ref), ("exact", _flash_f64)):
+        layers.attention_core = lambda q, k, v, **kw: fn(
+            q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+        try:
+            out[name] = _all_position_logits(model, tokens)
+        finally:
+            layers.attention_core = core
+    plain, exact = out["plain"], out["exact"]
+    floor = _rel(exact, plain)
+    limit = max(MODEL_REL_L2, MODEL_FLOOR_FACTOR * floor)
+    rel_train, rel_kernel = _rel(train, plain), _rel(kernel, plain)
+    print(f"train vs kernels ({cfg.name}, B={tokens.shape[0]} "
+          f"S={tokens.shape[1]}, attn_impl {cfg.attn_impl} block "
+          f"{cfg.attn_block_kv}): logits rel L2 train mode vs plain "
+          f"{rel_train:.5f}, prefill mode (flash kernel) vs plain "
+          f"{rel_kernel:.5f}, train vs prefill {_rel(train, kernel):.5f}, "
+          f"exact (f64) vs plain {floor:.5f} (limit {limit:.5f}); kernel "
+          f"launches in train mode {train_launches}")
+    check(all(n == 0 for n in train_launches.values()),
+          f"train mode launched kernels: {train_launches}")
+    check(bool(torch.isfinite(train).all()) and rel_train <= limit
+          and rel_kernel <= limit,
+          f"train mode {rel_train} / prefill mode {rel_kernel} against the "
+          f"plain version's logits, limit {limit}")
+
+
+def phase_train(card: str) -> None:
+    """Full-width olmo-1b trained on the card.  (1) ``launch/train.py``'s
+    path (the data pipeline's batches, ``TrainLoop`` with the step wall
+    after a synchronize, AdamW in place, remat as the config says) for
+    TRAIN's steps at its batch and length: its own lines (loss per step,
+    step wall, tok/s), the peak memory, no kernel launched; one more step
+    timed and one profiled, split into forward, backward and optimizer
+    (``_train_sections``).  (2) Train mode
+    against the kernels (``phase_train_vs_kernels``).  (3) Memorisation:
+    the optimizer state zeroed, ``memorise_steps`` on one repeated batch;
+    the loss must fall by ``memorise_drop``.  (4) One async checkpoint of
+    the full state under ``build/`` (deleted after): the step wall while
+    it is pending, its write and read rates, and the restore bit-equal to
+    the state saved."""
+    import shutil
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import Model
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import AdamWConfig, leaves
+    from repro_torch.training.train_loop import (batch_to_device,
+                                                 make_train_step)
+    cfg = get_config("olmo-1b")
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", "olmo-1b", "--steps", str(TRAIN["steps"]), "--batch",
+            str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--lr",
+            str(TRAIN["lr"]), "--device", DEVICE]
+    print(f"train {cfg.name}: python -m repro_torch.launch.train "
+          f"{' '.join(argv)} (remat {cfg.remat}, policy {cfg.remat_policy}, "
+          f"attn_impl {cfg.attn_impl}) on {card}")
+    t0 = time.perf_counter()
+    result = launch_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = _launch_counts()
+    losses = [result["losses"][i] for i in sorted(result["losses"])]
+    params, state = result["params"], result["opt_state"]
+    n_params = sum(t.numel() for t in leaves(params))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in leaves(params) + leaves(state["mu"])
+                      + leaves(state["nu"]))
+    tokens = TRAIN["steps"] * TRAIN["batch"] * TRAIN["seq"]
+    print(f"train {cfg.name} at full width: {n_params} parameters, state "
+          f"{state_bytes} bytes (bf16 parameters, f32 mu and nu); "
+          f"{TRAIN['steps']} steps of {TRAIN['batch']}x{TRAIN['seq']} in "
+          f"{wall:.2f} s with the first step's allocations "
+          f"({tokens / wall:.0f} tok/s); loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; stragglers {result['stragglers']}; peak "
+          f"allocated {peak} bytes; kernel launches {counts}")
+    check(all(math.isfinite(x) for x in losses), "non-finite training loss")
+    check(all(n == 0 for n in counts.values()),
+          f"training launched kernels: {counts}")
+    check(n_params == cfg.param_count(), f"{cfg.name} has {n_params} "
+                                         f"parameters, its config "
+                                         f"{cfg.param_count()}")
+
+    model = Model(cfg, params=params, device=DEVICE)
+    opt = AdamWConfig(lr=TRAIN["lr"], warmup_steps=3,
+                      total_steps=TRAIN["steps"])
+    data = batches(DataConfig(vocab_size=cfg.vocab_size,
+                              seq_len=TRAIN["seq"],
+                              global_batch=TRAIN["batch"], seed=1))
+    prof = _train_sections(make_train_step(cfg, opt), params, state,
+                           batch_to_device(next(data), DEVICE))
+    secs = prof["sections"]
+    print(f"train step profile ({cfg.name}, {TRAIN['batch']}x"
+          f"{TRAIN['seq']}): wall {prof['wall_us'] / 1e3:.2f} ms without "
+          f"the profiler ({TRAIN['batch'] * TRAIN['seq'] / prof['wall_us'] * 1e6:.0f}"
+          f" tok/s); device busy {prof['busy_us'] / 1e3:.2f} ms, idle share "
+          f"{_fmt(prof['idle'], '.4f')}; by section (device busy / host "
+          f"range, ms): " + ", ".join(
+              f"{n} {b / 1e3:.2f} / {_fmt(w and w / 1e3, '.2f')}"
+              for n, (b, w) in secs.items())
+          + f"; device time no section launched {prof['other_us'] / 1e3:.3f}"
+          f" ms; {sum(n for _, (n, _) in prof['top'])} launches in the top "
+          f"{len(prof['top'])} kernels")
+    for name, (n, us) in prof["top"]:
+        print(f"  {us / 1e3:9.3f} ms  {n:5d} calls  {name}")
+
+    phase_train_vs_kernels(model, batch_to_device(next(data), DEVICE)[
+        "tokens"][:1])
+
+    for t in leaves(state["mu"]) + leaves(state["nu"]):
+        t.zero_()
+    state["step"] = torch.zeros((), dtype=torch.int32, device=DEVICE)
+    mem_opt = AdamWConfig(lr=TRAIN["memorise_lr"], warmup_steps=2,
+                          total_steps=TRAIN["memorise_steps"])
+    step = make_train_step(cfg, mem_opt)
+    batch = next(data)
+    mem, walls = [], []
+    for _ in range(TRAIN["memorise_steps"]):
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        mem.append(float(metrics["loss"]))
+    drop = mem[0] - mem[-1]
+    print(f"train memorise ({cfg.name}, one batch repeated, lr "
+          f"{TRAIN['memorise_lr']}): loss " + " ".join(f"{x:.4f}" for x in mem)
+          + f"; fell by {drop:.4f} (at least {TRAIN['memorise_drop']}); "
+          f"step wall median {statistics.median(walls) * 1e3:.1f} ms")
+    check(drop >= TRAIN["memorise_drop"],
+          f"the loss fell by {drop} over {len(mem)} steps on one batch")
+
+    root = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    # the state as saved, kept in host memory: device copies would take
+    # the allocator's cached blocks, so the next step would allocate anew
+    # and its wall would not be the pending save's
+    kept = [t.detach().to("cpu", copy=True)
+            for t in leaves(params) + leaves(state["mu"])
+            + leaves(state["nu"]) + [state["step"]]]
+    nbytes = sum(t.numel() * t.element_size() for t in kept)
+    at = int(state["step"])
+    try:
+        t0 = time.perf_counter()
+        ckpt.save(root, params, state, at, async_commit=True)
+        snap = time.perf_counter() - t0
+        pending = []
+        for _ in range(TRAIN["pending_steps"]):
+            busy = any(t.is_alive() for t in ckpt._PENDING)
+            t1 = time.perf_counter()
+            params, state, _ = step(params, state, batch)
+            torch.cuda.synchronize()
+            pending.append((time.perf_counter() - t1, busy))
+        ckpt.wait_for_pending()
+        write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_p, got_s, got_step = ckpt.restore(root, at, params, state)
+        torch.cuda.synchronize()
+        read = time.perf_counter() - t0
+        got = (leaves(got_p) + leaves(got_s["mu"]) + leaves(got_s["nu"])
+               + [got_s["step"]])
+        same = len(got) == len(kept) and all(
+            _same_bits(a.detach().cpu(), b) for a, b in zip(got, kept))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"train checkpoint ({cfg.name}, step {at}, {nbytes} bytes, "
+          f"{free} bytes free at build/): snapshot to host "
+          f"{snap:.2f} s, committed after {write:.2f} s "
+          f"({nbytes / write / 1e9:.3f} GB/s), restore {read:.2f} s "
+          f"({nbytes / read / 1e9:.3f} GB/s); step wall while the save was "
+          f"pending " + ", ".join(f"{w * 1e3:.1f} ms{'' if b else ' (done)'}"
+                                  for w, b in pending)
+          + f" against {statistics.median(walls) * 1e3:.1f} ms; restore "
+          f"bit-equal {same} (parameters, mu, nu, step {got_step})")
+    check(same and got_step == at, "the restored training state differs "
+                                   "from the state saved")
+    del model, params, state, kept, got, got_p, got_s, result
+    torch.cuda.empty_cache()
+
+
+def _greedy_serve(model, tokens, new_tokens: int, **frontend) -> dict:
+    """Model-level serving of one batch: a prefill (with ``frontend``)
+    and ``new_tokens - 1`` greedy decode steps.  Returns the tokens (B,
+    new_tokens), the prefill's and the decode's wall, the prefill's and the
+    whole run's launches by kernel, and whether every logit was finite."""
+    _zero_counts()
+    b, s = tokens.shape
+    prefix = frontend["patch_embeds"].shape[1] \
+        if "patch_embeds" in frontend else 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, idx = model.prefill(tokens, prefix + s + new_tokens,
+                                       **frontend)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = _launch_counts()
+    finite = torch.isfinite(logits).all()
+    out = [logits[:, -1].float().argmax(-1)]
+    index = torch.full((b,), idx, dtype=torch.int32, device=DEVICE)
+    t0 = time.perf_counter()
+    for _ in range(new_tokens - 1):
+        logits, cache = model.decode_step(
+            cache, out[-1][:, None].to(torch.int32), index)
+        finite = finite & torch.isfinite(logits).all()
+        out.append(logits[:, -1].float().argmax(-1))
+        index += 1
+    torch.cuda.synchronize()
+    return dict(tokens=torch.stack(out, 1).cpu(), prefill_s=prefill_s,
+                decode_s=time.perf_counter() - t0,
+                prefill_launches=prefill_launches, launches=_launch_counts(),
+                finite=bool(finite), index=idx)
+
+
+def _serve_report(model, run: dict, want_prefill: dict, want: dict,
+                  label: str) -> None:
+    cfg = model.cfg
+    toks = run["tokens"]
+    b, n = toks.shape
+    steps = n - 1
+    print(f"serve {label}: {b} requests, prefill to position {run['index']} "
+          f"in {run['prefill_s']:.4f} s, {steps} decode steps in "
+          f"{run['decode_s']:.4f} s ({b * steps / run['decode_s']:.1f} decode "
+          f"tok/s); launches prefill {run['prefill_launches']}, whole run "
+          f"{run['launches']}; finite {run['finite']}; first request's tokens "
+          f"{toks[0, :8].tolist()}")
+    check(run["finite"], f"{label}: non-finite logits")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{label}: token outside the vocab")
+    check(run["prefill_launches"] == want_prefill,
+          f"{label}: prefill launches {run['prefill_launches']}, expected "
+          f"{want_prefill}")
+    check(run["launches"] == want, f"{label}: launches {run['launches']}, "
+                                   f"expected {want}")
+
+
+def phase_encdec(model) -> dict:
+    """seamless-m4t-medium at full width, model-level (the serving engine
+    feeds only tokens, as the reference's does): the model check with 512
+    stub frames (every encoder, self and cross attention call held to the
+    kernel cases' limits), then ENCDEC's requests: one prefill (the
+    encoder's flash calls, causal as the reference's scanned encoder; the
+    decoder's causal self attention; cross attention over the frames at
+    Sq = prompt, Sk = frames) and greedy decode (self attention on the
+    paged kernel at D = 64, cross attention on the flash kernel with one
+    query row over the cached cross K/V).  Returns the launches."""
+    from repro_torch.models.frontends import synthetic_frontend_embeddings
+    cfg = model.cfg
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    frames = synthetic_frontend_embeddings(gen, cfg, ENCDEC["batch"])
+    tokens = torch.randint(1, cfg.vocab_size,
+                           (ENCDEC["batch"], ENCDEC["prompt_len"]),
+                           generator=gen, device=DEVICE, dtype=torch.int32)
+    phase_model_check(model, prompt_len=ENCDEC["prompt_len"],
+                      frontend={"frames": frames[:1]})
+    run = _greedy_serve(model, tokens, ENCDEC["new_tokens"], frames=frames)
+    steps = ENCDEC["new_tokens"] - 1
+    none = {"mlstm_scan": 0, "dequant": 0}
+    want_prefill = dict(flash_attention=cfg.encoder_layers + 2 * cfg.n_layers,
+                        paged_attention=0, **none)
+    want = dict(flash_attention=want_prefill["flash_attention"]
+                + steps * cfg.n_layers,
+                paged_attention=steps * cfg.n_layers, **none)
+    _serve_report(model, run, want_prefill, want,
+                  f"{cfg.name} ({frames.shape[1]} frames, prompts of "
+                  f"{ENCDEC['prompt_len']}; flash a prefill: "
+                  f"{cfg.encoder_layers} encoder + {cfg.n_layers} self + "
+                  f"{cfg.n_layers} cross; a decode step: {cfg.n_layers} "
+                  f"paged (self, D {cfg.head_dim}) + {cfg.n_layers} flash "
+                  f"(cross, Sq 1 Sk {frames.shape[1]}))")
+    return run["launches"]
+
+
+def phase_encdec_train(model) -> None:
+    """seamless-m4t-medium's train steps at full width (ENCDEC's batch and
+    length, frames from the data pipeline) through ``make_train_step``:
+    after the first, every encoder and cross-attention leaf's first moment
+    (a tenth of its clipped gradient) must hold a nonzero element; the
+    loss must stay finite; no kernel is launched."""
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.models.model import _flatten
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    cfg = model.cfg
+    model.train()
+    opt = AdamWConfig(lr=1e-4, warmup_steps=1,
+                      total_steps=ENCDEC["train_steps"])
+    data = batches(DataConfig(vocab_size=cfg.vocab_size,
+                              seq_len=ENCDEC["train_seq"],
+                              global_batch=ENCDEC["train_batch"]),
+                   model_cfg=cfg)
+    state = init_train_state(model.params, opt)
+    step = make_train_step(cfg, opt)
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, reached = [], [], None
+    for _ in range(ENCDEC["train_steps"]):
+        t0 = time.perf_counter()
+        _, state, metrics = step(model.params, state, next(data))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        if reached is None:
+            reached = [(name, bool((mu != 0).any()))
+                       for name, mu in _flatten(state["mu"])
+                       if name.startswith("encoder") or "cross" in name]
+    model.eval()
+    counts = _launch_counts()
+    missing = [name for name, ok in reached if not ok]
+    print(f"train {cfg.name} ({ENCDEC['train_steps']} steps of "
+          f"{ENCDEC['train_batch']}x{ENCDEC['train_seq']} with "
+          f"{cfg.frontend_tokens} frames each): loss "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; step wall " + " ".join(f"{w * 1e3:.0f}" for w in walls)
+          + f" ms; first moments nonzero after step 1 (a gradient arrived) "
+          f"in {len(reached) - len(missing)} of {len(reached)} encoder and "
+          f"cross-attention leaves; peak "
+          f"allocated {torch.cuda.max_memory_allocated()} bytes; kernel "
+          f"launches {counts}")
+    check(all(math.isfinite(x) for x in losses), "non-finite loss")
+    check(reached and not missing, f"no gradient reached {missing}")
+    check(all(n == 0 for n in counts.values()),
+          f"training launched kernels: {counts}")
+
+
+def phase_vlm(model) -> dict:
+    """internvl2-76b at full width and VLM's depth: the model check with
+    the patch prefix, then VLM's requests (stub patch embeddings before
+    the prompt tokens): one prefill (flash over patches and tokens, H64 /
+    KV8) and greedy decode on the paged kernel.  Returns the launches."""
+    from repro_torch.models.frontends import synthetic_frontend_embeddings
+    cfg = model.cfg
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    patches = synthetic_frontend_embeddings(gen, cfg, VLM["batch"])
+    tokens = torch.randint(1, cfg.vocab_size,
+                           (VLM["batch"], VLM["prompt_len"]),
+                           generator=gen, device=DEVICE, dtype=torch.int32)
+    phase_model_check(model, prompt_len=VLM["prompt_len"],
+                      frontend={"patch_embeds": patches[:1]})
+    run = _greedy_serve(model, tokens, VLM["new_tokens"],
+                        patch_embeds=patches)
+    steps = VLM["new_tokens"] - 1
+    none = {"mlstm_scan": 0, "dequant": 0}
+    want_prefill = dict(flash_attention=cfg.n_layers, paged_attention=0,
+                        **none)
+    want = dict(flash_attention=cfg.n_layers,
+                paged_attention=steps * cfg.n_layers, **none)
+    check(run["index"] == patches.shape[1] + VLM["prompt_len"],
+          f"the prefill ends at {run['index']}")
+    _serve_report(model, run, want_prefill, want,
+                  f"{cfg.name} at {cfg.n_layers} of "
+                  f"80 layers ({patches.shape[1]} patches + "
+                  f"{VLM['prompt_len']} tokens; H{cfg.n_heads} "
+                  f"KV{cfg.n_kv_heads} D{cfg.head_dim})")
+    return run["launches"]
 
 
 def phase_profile(model) -> None:
@@ -2577,6 +3103,7 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
     rows.append(_time_dequant(gen, launches, errs))
     layouts = _time_layouts(gen)
     layouts.update(_time_wide_flash(gen))
+    layouts.update(_time_encdec_flash(gen))
     for row in rows[:2]:
         row["head_layouts"] = {arch: t[row["name"]]
                                for arch, t in layouts.items()
@@ -2611,6 +3138,43 @@ def _time_wide_flash(gen) -> dict:
         out[arch] = {"flash_attention": dict(
             ms=got["kernel"], library_ms=got["sdpa"], bound_ms=bms,
             bound_by=by, shape=dict(s=s, h=h, kv=kv, d=d, window=window))}
+        del q, k, v
+    return out
+
+
+def _time_encdec_flash(gen) -> dict:
+    """The flash kernel at seamless-m4t-medium's shapes (H16 KV16 D64,
+    ENCDEC's batch): the cross attention of a prefill (Sq = the prompt,
+    Sk = the 512 frames, non-causal) and the encoder's self attention over
+    the frames, causal as the model runs it (the reference's scanned
+    encoder) and non-causal, beside SDPA, device time per call in turns,
+    with the bound: the operations of the unmasked (q, k) pairs and the
+    bytes of q, k, v and o."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    cfg = get_config("seamless-m4t-medium")
+    b, h, d, f = ENCDEC["batch"], cfg.n_heads, cfg.head_dim, \
+        cfg.frontend_tokens
+    out = {}
+    for label, sq, causal in (("cross", ENCDEC["prompt_len"], False),
+                              ("encoder", f, True),
+                              ("encoder non-causal", f, False)):
+        q = _randn(gen, b, sq, h, d)
+        k, v = (_randn(gen, b, f, h, d) for _ in range(2))
+        got = _in_turns(dict(
+            kernel=lambda: fa.flash_attention(q, k, v, causal=causal),
+            sdpa=lambda: _flash_sdpa(q, k, v, causal=causal)),
+            f"flash {cfg.name} {label}")
+        pairs = b * (sq * (sq + 1) // 2 if causal else sq * f)
+        bms, by = bound(4.0 * h * d * pairs, 2 * b * (2 * sq + 2 * f) * h * d)
+        print(f"timing flash at {cfg.name}'s {label} (B={b} Sq={sq} Sk={f} "
+              f"H={h} D={d}, causal {causal}): kernel {_ms(got['kernel'])}, "
+              f"sdpa {_ms(got['sdpa'])}, bound {bms:.5f} ms ({by}); kernel / "
+              f"sdpa {_ratio(got['kernel'], got['sdpa'])}")
+        out[f"{cfg.name} {label}"] = {"flash_attention": dict(
+            ms=got["kernel"], library_ms=got["sdpa"], bound_ms=bms,
+            bound_by=by, shape=dict(b=b, sq=sq, sk=f, h=h, d=d,
+                                    causal=causal))}
         del q, k, v
     return out
 
@@ -2884,6 +3448,11 @@ def _ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.5f} ms device"
 
 
+def _fmt(x, spec: str) -> str:
+    """``x`` formatted, or "not measured" where it is None."""
+    return "not measured" if x is None else format(x, spec)
+
+
 def _ratio(a, b) -> str:
     return "not measured" if a is None or b is None else f"{a / b:.4f}"
 
@@ -2978,6 +3547,10 @@ def main() -> None:
     del model
     torch.cuda.empty_cache()
 
+    # olmo-1b trained at full width (autograd over the train mode: no
+    # kernel), held to the flash path, checkpointed
+    phase_train(card)
+
     # xlstm-1.3b: the mLSTM scan on every mLSTM block's prefill
     t0 = time.perf_counter()
     model = Model(get_config("xlstm-1.3b"), seed=0, device=DEVICE)
@@ -3038,6 +3611,30 @@ def main() -> None:
               f"{torch.cuda.max_memory_allocated()} bytes")
         del model
         torch.cuda.empty_cache()
+
+    # seamless-m4t-medium (encoder-decoder: the encoder and cross attention
+    # on the flash kernel, self attention decode on the paged kernel at
+    # D = 64; trained too) and internvl2-76b at VLM's depth (a patch
+    # prefix; H64 KV8), model-level; each is freed before the next is drawn
+    seamless = get_config("seamless-m4t-medium")
+    model = init_model("seamless-m4t-medium", cache=(
+        ENCDEC["batch"], ENCDEC["prompt_len"] + ENCDEC["new_tokens"],
+        seamless.frontend_tokens))
+    more = phase_encdec(model)
+    launches = {k: n + more[k] for k, n in launches.items()}
+    phase_encdec_train(model)
+    del model
+    torch.cuda.empty_cache()
+    vlm = get_config("internvl2-76b")
+    model = init_model("internvl2-76b", cache=(
+        VLM["batch"], vlm.frontend_tokens + VLM["prompt_len"]
+        + VLM["new_tokens"], 0), n_layers=VLM["n_layers"])
+    more = phase_vlm(model)
+    launches = {k: n + more[k] for k, n in launches.items()}
+    print(f"{vlm.name}: peak allocated over its phases "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+    del model
+    torch.cuda.empty_cache()
 
     phase_drift()
     rows = phase_timings(gen, launches, errs)

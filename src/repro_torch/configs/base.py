@@ -203,14 +203,15 @@ ARCH_IDS = (
     "qwen3p6-27b",
 )
 
-#: the archs whose model this package can run: the decoder-only families
-#: (dense, MoE, MLA, hymba's hybrid blocks, the xLSTM stack).  Every arch's
-#: config loads (``get_config``) and prices (``core.compute``); ``Model``
-#: refuses encoders and frontends (``models.transformer.check_supported``;
-#: ROADMAP.md, Queue 1 item 2)
+#: the archs the serving engine runs: every arch but the encoder-decoder,
+#: whose prefill needs frames the engine does not feed (it passes a
+#: request's tokens only, as the reference's ``_prefill_into_slot`` does;
+#: ``Model.prefill`` serves it model-level).  internvl2-76b serves its
+#: token-only prompts.  ``Model`` itself runs every arch in ``ARCH_IDS``
 PORTED_ARCH_IDS = ("olmo-1b", "qwen1.5-4b", "qwen3-32b", "nemotron-4-340b",
                    "qwen3p6-27b", "xlstm-1.3b", "hymba-1.5b",
-                   "deepseek-moe-16b", "deepseek-v2-lite-16b")
+                   "deepseek-moe-16b", "deepseek-v2-lite-16b",
+                   "internvl2-76b")
 
 _REGISTRY: dict[str, ModelConfig] = {}
 

@@ -5,8 +5,9 @@ The InternViT frontend is a STUB per the assignment: ``input_specs()``
 supplies precomputed patch embeddings (batch, patches, d_model) that the
 backbone consumes alongside token embeddings.
 
-Carried for pricing only (``core.compute``): ``Model`` refuses frontends
-(``models.transformer.check_supported``).
+``Model`` runs it, the stub patch embeddings before the tokens
+(``Model.prefill(tokens, max_len, patch_embeds=...)``); 141 GB of weights
+at full depth fit no single card.
 """
 
 from repro_torch.configs.base import ModelConfig, register

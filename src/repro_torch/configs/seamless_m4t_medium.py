@@ -5,8 +5,9 @@ The speech frontend is a STUB per the assignment: ``input_specs()`` supplies
 precomputed frame embeddings (batch, frames, d_model); the measured system is
 the 12L encoder + 12L decoder transformer backbone with cross-attention.
 
-Carried for pricing only (``core.compute``): ``Model`` refuses encoders and
-frontends (``models.transformer.check_supported``).
+``Model`` runs it (the encoder over the stub frames, cross attention in
+every decoder block); the serving engine feeds tokens only, so it is served
+model-level (``Model.prefill(tokens, max_len, frames=...)``).
 """
 
 from repro_torch.configs.base import ModelConfig, register

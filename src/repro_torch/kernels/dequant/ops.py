@@ -5,8 +5,9 @@ scales each) with ``csrc/dequant.cu`` for tensors on the card, one launch
 per ``MAX_SEGMENTS`` segments into one output buffer, and runs the plain
 version (``ref.dequant_many_ref``) for tensors on the CPU.  ``dequant`` is
 its one-segment case for (nblocks, 128) codes.  There is no fallback: a
-CUDA tensor the kernel does not take raises.  ``dequant.launches`` counts
-kernel launches.
+CUDA tensor the kernel does not take raises, and so does an input that
+requires grad under grad mode (the kernel has no backward).
+``dequant.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import ctypes
 from typing import Sequence
 
 import torch
+
+from repro_torch.kernels import refuse_autograd
 
 from .ref import BLOCK, CODE_DTYPES, dequant_many_ref
 
@@ -78,6 +81,7 @@ def dequant_many(codes: Sequence[torch.Tensor],
     if not codes or len(codes) != len(scales):
         raise ValueError(f"dequant_many: a non-empty list of segments, "
                          f"got {len(codes)} codes and {len(scales)} scales")
+    refuse_autograd("dequant", *codes, *scales)
     device = codes[0].device
     for i, (c, s) in enumerate(zip(codes, scales)):
         if c.device != device or s.device != device:

@@ -3,7 +3,9 @@
 ``flash_attention`` launches ``csrc/flash_attention.cu`` for tensors on the
 card and runs the plain version (``ref.flash_attention_ref``) for tensors
 on the CPU.  There is no fallback: a CUDA tensor the kernel does not take
-raises.  ``flash_attention.launches`` counts kernel launches.
+raises, and so does an input that requires grad under grad mode (the
+kernel has no backward).  ``flash_attention.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import math
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels import refuse_autograd
 
 from .ref import flash_attention_ref
 
@@ -38,6 +42,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Sk, KV, D).  Returns (B, Sq, H, D)."""
     _check(q, k, v, window)
+    refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

@@ -2,7 +2,9 @@
 
 ``mlstm_scan`` launches ``csrc/mlstm_scan.cu`` for tensors on the card and
 runs the plain version (``ref.mlstm_chunked_ref``) for tensors on the CPU.
-There is no fallback: a CUDA tensor the kernel does not take raises.
+There is no fallback: a CUDA tensor the kernel does not take raises, and
+so does an input that requires grad under grad mode (the kernel has no
+backward; the model trains through ``ref.mlstm_chunked_ref``).
 ``mlstm_scan.launches`` counts kernel launches (one per call; the call
 runs the source's passes in order: stats, products (scores and the
 chunks' state contributions), combine (more than one chunk), out, after
@@ -17,7 +19,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
+
 from .ref import mlstm_chunked_ref
+
 
 def _check(q, k, v, log_i, log_f, chunk, initial_state):
     if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 \
@@ -48,6 +53,8 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     f32; ``initial_state`` (C (B,H,dk,dv), n (B,H,dk), m (B,H)) f32 or the
     empty state.  Returns (y (B,S,H,dv) in q's dtype, (C, n, m) f32)."""
     _check(q, k, v, log_i, log_f, chunk, initial_state)
+    refuse_autograd("mlstm_scan", q, k, v, log_i, log_f,
+                    *(initial_state or ()))
     if q.device.type == "cpu":
         return mlstm_chunked_ref(q, k, v, log_i, log_f, chunk=chunk,
                                  initial_state=initial_state)
@@ -60,6 +67,8 @@ def mlstm_scan_with_workspace(q, k, v, log_i, log_f, *, chunk: int,
     """``mlstm_scan`` on the card, also returning the kernel's workspace as
     ``workspace_views`` names it (what ``probe`` reads)."""
     _check(q, k, v, log_i, log_f, chunk, initial_state)
+    refuse_autograd("mlstm_scan", q, k, v, log_i, log_f,
+                    *(initial_state or ()))
     y, state, ws = _launch(q, k, v, log_i, log_f, chunk, initial_state)
     b, s, h, dk = q.shape
     return y, state, workspace_views(ws, b, s, h, dk, v.shape[3], chunk)

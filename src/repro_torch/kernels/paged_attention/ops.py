@@ -3,7 +3,9 @@
 ``paged_attention`` launches ``csrc/paged_attention.cu`` for tensors on the
 card and runs the plain version (``ref.paged_attention_ref``) for tensors
 on the CPU.  There is no fallback: a CUDA tensor the kernel does not take
-raises.  ``paged_attention.launches`` counts kernel launches (one per call).
+raises, and so does an input that requires grad under grad mode (the
+kernel has no backward).  ``paged_attention.launches`` counts kernel
+launches (one per call).
 
 The kernel splits each row's pages over blocks (flash-decoding).
 ``pages_per_split`` is the host's split plan, from the shapes alone (the
@@ -17,6 +19,8 @@ import ctypes
 import math
 
 import torch
+
+from repro_torch.kernels import refuse_autograd
 
 from .ref import paged_attention_ref
 
@@ -71,6 +75,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """q: (B, H, D); k_pages/v_pages: (P, page, KV, D); block_tables:
     (B, pages_max) int32; lengths: (B,) int32.  Returns (B, H, D)."""
     _check(q, k_pages, v_pages, block_tables, lengths)
+    refuse_autograd("paged_attention", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths)
     if q.device.type != "cuda":

@@ -7,12 +7,15 @@ Parameters are plain tensors in nested dicts, in the JAX package's layouts
 weights across is a copy (``repro_torch.convert``).  Every block is a
 function ``(params, x, ...) -> y``.
 
-Prefill attention always goes through the flash-attention kernel's wrapper
-(``kernels/flash_attention/ops.py``), whatever ``cfg.attn_impl`` says: the
-hand-written CUDA kernel for a tensor on the card, its plain version (the
-reference's ``dense_attention`` arithmetic) for a tensor on the CPU.
-``dense_attention`` and ``blockwise_attention`` are kept as plain versions
-of the reference's two jnp attention paths.  MLA's absorbed decode and the
+Prefill (and the serving encoder's) attention always goes through the
+flash-attention kernel's wrapper (``kernels/flash_attention/ops.py``),
+whatever ``cfg.attn_impl`` says: the hand-written CUDA kernel for a tensor
+on the card, its plain version (the reference's ``dense_attention``
+arithmetic) for a tensor on the CPU.  Train mode (``train=True``) runs the
+reference's jnp attention paths instead, written with torch ops so autograd
+differentiates them: ``train_attention`` follows ``cfg.attn_impl`` as the
+reference's ``attention_core`` does (``dense_attention`` or
+``blockwise_attention``).  MLA's absorbed decode and the
 MoE dispatch and expert products are jnp code in the reference, outside
 any Pallas kernel, and plain torch here.  MoE runs on one device: the
 reference's expert-parallel ``shard_map`` is still to port (ROADMAP.md,
@@ -190,11 +193,42 @@ def blockwise_attention(q, k, v, *, causal: bool, block_kv: int = 1024,
 
 def attention_core(q, k, v, *, causal: bool,
                    window: Optional[int] = None) -> torch.Tensor:
-    """Full-sequence (train / prefill) attention: the flash kernel's wrapper.
-    GQA is native there, so K/V are never repeated in memory."""
+    """Full-sequence serving attention (prefill, the encoder, cross
+    attention): the flash kernel's wrapper.  GQA is native there, so K/V
+    are never repeated in memory."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     return fa_ops.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal, window=window)
+
+
+def train_attention(q, k, v, cfg, *, causal: bool,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Train-mode attention, selected by ``cfg.attn_impl`` as the
+    reference's ``attention_core`` selects it: K/V heads repeated for GQA,
+    then ``"blockwise"`` runs ``blockwise_attention`` over blocks of
+    ``cfg.attn_block_kv`` keys and ``"dense"`` runs ``dense_attention``,
+    both torch ops that autograd differentiates.
+
+    ``"pallas"`` raises: the reference would run its forward-only Pallas
+    kernel there, which has no VJP, so neither package can train through
+    it, and the port's CUDA kernels have no backward either (their wrappers
+    refuse inputs that require grad).  This is a design choice, not a
+    fallback: serving calls run the kernels whatever ``attn_impl`` says,
+    and training never does."""
+    if cfg.attn_impl == "pallas":
+        raise NotImplementedError(
+            f"{cfg.name}: attn_impl 'pallas' cannot train: the flash kernel "
+            f"has no backward (no VJP in the reference either); use "
+            f"'blockwise' or 'dense'")
+    n_rep = q.shape[2] // k.shape[2]
+    k = k.repeat_interleave(n_rep, dim=2)
+    v = v.repeat_interleave(n_rep, dim=2)
+    if cfg.attn_impl == "blockwise":
+        return blockwise_attention(q, k, v, causal=causal, window=window,
+                                   block_kv=cfg.attn_block_kv)
+    if cfg.attn_impl == "dense":
+        return dense_attention(q, k, v, causal=causal, window=window)
+    raise ValueError(f"{cfg.name}: unknown attn_impl {cfg.attn_impl!r}")
 
 
 # ---------------------------------------------------------------------------------
@@ -226,18 +260,26 @@ def init_attention(generator, cfg, *, lead: tuple = (), device=None) -> Params:
     return p
 
 
-def qkv_projections(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
+def qkv_projections(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
+                    kv_override: Optional[tuple] = None):
     """q, k, v for x: (B, S, D) -> (B,S,H,hd), (B,S,KV,hd) x2, with bias,
-    qk-norm and RoPE applied as the reference orders them."""
+    qk-norm and RoPE applied as the reference orders them.  With
+    ``kv_override`` (cross attention) k and v are the given ones, not
+    projected from x, and RoPE is not applied."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + p["bq"]
+    if kv_override is None:
+        k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+        if cfg.qkv_bias:
+            k, v = k + p["bk"], v + p["bv"]
+    else:
+        k, v = kv_override
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q, "rmsnorm")
         k = apply_norm(p["k_norm"], k, "rmsnorm")
-    if cfg.rope:
+    if cfg.rope and kv_override is None:
         sin, cos = rope_table(positions, cfg.head_dim, cfg.rope_theta)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
@@ -246,16 +288,24 @@ def qkv_projections(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
 
 def attention_block(p: Params, x: torch.Tensor, cfg, *,
                     positions: torch.Tensor, window: Optional[int] = None,
-                    causal: bool = True, return_kv: bool = False):
-    """GQA attention over a full sequence (train and prefill).  x: (B, S, D).
+                    causal: bool = True, kv_override: Optional[tuple] = None,
+                    return_kv: bool = False, train: bool = False):
+    """GQA attention over a full sequence (train, prefill, the encoder).
+    x: (B, S, D).
 
-    With ``return_kv`` the post-RoPE (k, v) come back too, so the caller
-    assembles the KV cache in one shot.  Decode against a cache is
-    ``transformer.decode_attention`` (the paged kernel).
+    ``kv_override``: (k, v) for cross attention (encoder-decoder), of
+    shape (B, Sk, KV, hd), Sk the encoder's length.  With ``return_kv`` the
+    post-RoPE (k, v) come back too, so the caller assembles the KV cache in
+    one shot.  ``train`` runs ``train_attention`` (autograd through the
+    reference's jnp paths) in place of the flash kernel.  Decode against a
+    cache is ``transformer.decode_attention`` (the paged kernel).
     Returns (y, (k, v) or None).
     """
-    q, k, v = qkv_projections(p, x, cfg, positions)
-    out = attention_core(q, k, v, causal=causal, window=window)
+    q, k, v = qkv_projections(p, x, cfg, positions, kv_override)
+    if train:
+        out = train_attention(q, k, v, cfg, causal=causal, window=window)
+    else:
+        out = attention_core(q, k, v, causal=causal, window=window)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, ((k, v) if return_kv else None)
 
@@ -285,6 +335,18 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its tanh form) with the reference's rounding:
+    ``x * (0.5 * (1 + tanh(c * (x + k * x**3))))`` where XLA rounds every
+    step, ``x**3`` as ``(x * x) * x``, and the constants ``k = 0.044715``
+    and ``c = sqrt(2 / pi)`` themselves, to x's dtype (read from the
+    compiled HLO); ``F.gelu`` rounds once."""
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    cdf = 0.5 * (1 + torch.tanh(c * (x + k * (x * x * x))))
+    return x * cdf
+
+
 def mlp_block(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.mlp_kind == "swiglu":
         return torch.einsum(
@@ -296,7 +358,7 @@ def mlp_block(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.mlp_kind == "squared_relu":
         h = torch.square(F.relu(h))
     elif cfg.mlp_kind == "gelu":
-        h = F.gelu(h, approximate="tanh")
+        h = gelu(h)
     else:
         raise ValueError(cfg.mlp_kind)
     return torch.einsum("bsf,fd->bsd", h, p["wo"])
@@ -342,12 +404,13 @@ def mla_latents(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
 
 
 def mla_block(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-              return_kv: bool = False):
-    """Multi-head latent attention over a full sequence (prefill): K/V are
-    decompressed per head and run through the flash kernel at head dim
-    ``nope + rope`` with V zero-padded to it, then sliced back to
-    ``v_head_dim``.  With ``return_kv`` the post-RoPE latents (c, k_pe)
-    come back for one-shot cache assembly.  Decode is ``mla_decode``."""
+              return_kv: bool = False, train: bool = False):
+    """Multi-head latent attention over a full sequence (train, prefill):
+    K/V are decompressed per head and run through the flash kernel (train:
+    ``train_attention``) at head dim ``nope + rope`` with V zero-padded to
+    it, then sliced back to ``v_head_dim``.  With ``return_kv`` the
+    post-RoPE latents (c, k_pe) come back for one-shot cache assembly.
+    Decode is ``mla_decode``."""
     b, s, _ = x.shape
     h, dr = cfg.n_heads, cfg.rope_head_dim
     dn, dv = cfg.nope_head_dim, cfg.v_head_dim
@@ -357,8 +420,12 @@ def mla_block(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, dr)],
                        dim=-1)
     q_full = torch.cat([q_nope, q_pe], dim=-1)
-    out = attention_core(q_full, k_full, F.pad(v, (0, dn + dr - dv)),
-                         causal=True)[..., :dv]
+    v_full = F.pad(v, (0, dn + dr - dv))
+    if train:
+        out = train_attention(q_full, k_full, v_full, cfg, causal=True)
+    else:
+        out = attention_core(q_full, k_full, v_full, causal=True)
+    out = out[..., :dv]
     y = torch.einsum("bshv,hvd->bsd", out, p["wo"])
     return y, ((c, k_pe) if return_kv else None)
 

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
+from repro_torch.kernels.mlstm_scan.ref import mlstm_chunked_ref
 
 from .layers import Params, apply_norm, init_norm, make_param, silu
 
@@ -89,11 +90,15 @@ def _mlstm_out(p, y, z):
 
 
 def mlstm_chunked(p: Params, x: torch.Tensor, cfg, *,
-                  chunk: int = MLSTM_CHUNK, state: Optional[dict] = None):
+                  chunk: int = MLSTM_CHUNK, state: Optional[dict] = None,
+                  use_kernel: bool = True):
     """Chunkwise-parallel mLSTM forward with stabilised exponential gating.
 
     Returns (y, final_state).  The scan (q pre-scaled and q/k/v in f32, as
-    the reference computes them) is the mLSTM kernel's."""
+    the reference computes them) is the mLSTM kernel's; ``use_kernel=False``
+    (train mode) runs the torch chunked scan (``ref.mlstm_chunked_ref``)
+    instead, which autograd differentiates, as the reference trains through
+    its jnp scan (``mlstm_chunked(use_kernel=False)``)."""
     b, s, _ = x.shape
     inner, h, dk, dh = mlstm_dims(cfg)
     up = torch.einsum("bsd,de->bse", x, p["w_up"])
@@ -103,7 +108,8 @@ def mlstm_chunked(p: Params, x: torch.Tensor, cfg, *,
     qc = (q.float() * scale).contiguous()
     kc, vc = k.float().contiguous(), v.float().contiguous()
     init = None if state is None else (state["C"], state["n"], state["m"])
-    y, (C, n, m) = mlstm_ops.mlstm_scan(
+    scan = mlstm_ops.mlstm_scan if use_kernel else mlstm_chunked_ref
+    y, (C, n, m) = scan(
         qc, kc, vc, log_i.contiguous(), log_f.contiguous(), chunk=chunk,
         initial_state=init)
     y = y.reshape(b, s, inner).to(x.dtype)

@@ -1,8 +1,15 @@
 """Transformer assembly: dense, MoE and MLA decoders, hymba's hybrid
-attention+Mamba-2 blocks with sliding-window ring caches, and xLSTM stacks.
+attention+Mamba-2 blocks with sliding-window ring caches, xLSTM stacks and
+the seamless encoder-decoder (encoder blocks, decoder blocks with cross
+attention).
 
-PyTorch counterpart of ``repro.models.transformer`` for every decoder-only
-family; encoders and frontends are still to port.  A config with
+PyTorch counterpart of ``repro.models.transformer`` for every family.
+Modes of ``block_apply``: "train" (the whole sequence, no cache, autograd
+through ``layers.train_attention``), "encode" (the serving encoder: the
+whole sequence through the flash kernel, no cache), "prefill" and
+"decode".  Under ``cfg.remat`` a train-mode pass wraps each block of a
+scan-stacked tree in ``torch.utils.checkpoint`` (``remat``), as the
+reference wraps its scan body.  A config with
 ``scan_layers`` keeps the reference's scan-stacked layout (each leaf of
 ``params["blocks"]`` has a leading layers axis) and is applied in a Python
 loop over views; ``scan_layers=False`` trees (hymba, xLSTM) are per-layer
@@ -18,6 +25,10 @@ compare one to one:
          Mamba-2 state.  Stacked over layers for a scan-stacked tree, a
          per-layer list otherwise; ``"block0"`` beside ``"blocks"``.
          Decode updates it *in place*.
+  encoder-decoder: each decoder layer adds ``cross_k`` / ``cross_v``
+         (B, enc_len, KV, D), the encoder output projected through the
+         layer's ``cross.wk`` / ``cross.wv`` at prefill and read back at
+         decode.
   xLSTM: a list of per-layer ``{"ssm": state}`` trees (``models/ssm.py``).
 Recurrent state (xLSTM, Mamba-2) is read at the stepping rows' ``slots``
 and written back into those rows in place (``index_copy_``).
@@ -25,11 +36,15 @@ and written back into those rows in place (``index_copy_``).
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.paged_attention import ops as pa_ops
 
@@ -44,25 +59,22 @@ PAGE_SIZE = 16
 
 
 def check_supported(cfg) -> None:
-    """Raise for a config whose layers this package cannot run yet, naming
-    each missing feature.  Every arch's config loads (``get_config``) and
-    prices; this is where the model refuses the families still to port."""
+    """Raise for a config whose layers this package cannot run, naming
+    each missing feature.  Every arch in ``ARCH_IDS`` passes; what is
+    refused are layouts no registered config uses."""
     missing = []
     if cfg.family == "ssm":
         if cfg.ssm_kind != "xlstm":
             missing.append(f"ssm_kind {cfg.ssm_kind!r}")
         if cfg.scan_layers:
             missing.append("scan-stacked (scan_layers=True) xLSTM trees")
-    elif cfg.family not in ("dense", "moe", "hybrid"):
+    elif cfg.family not in ("dense", "moe", "hybrid", "encdec", "vlm"):
         missing.append(f"family {cfg.family!r}")
     if cfg.hybrid and cfg.ssm_kind != "mamba":
         missing.append(f"hybrid ssm_kind {cfg.ssm_kind!r}")
-    if cfg.encoder_layers or cfg.frontend:
-        missing.append("encoders and frontends")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet "
-            f"(ROADMAP.md, Queue 1 item 2)")
+            f"{cfg.name}: {', '.join(missing)} not ported to PyTorch")
 
 
 # ---------------------------------------------------------------------------------
@@ -92,8 +104,10 @@ def first_stacked_layer(cfg) -> int:
 
 
 def init_block(generator, cfg, layer_idx: int, *, lead: tuple = (),
-               device=None) -> Params:
-    """One attention block's parameters (``lead`` stacks them)."""
+               cross_attention: bool = False, device=None) -> Params:
+    """One attention block's parameters (``lead`` stacks them);
+    ``cross_attention`` adds ``cross_norm`` and ``cross`` (an
+    encoder-decoder's decoder block)."""
     kind = block_kind(cfg, layer_idx)
 
     def norm(kind_=cfg.norm_kind):
@@ -107,6 +121,9 @@ def init_block(generator, cfg, layer_idx: int, *, lead: tuple = (),
         p["ssm"] = ssm.init_mamba(generator, cfg, lead=lead, device=device)
         p["attn_out_norm"] = norm("rmsnorm")
         p["ssm_out_norm"] = norm("rmsnorm")
+    if cross_attention:
+        p["cross_norm"] = norm()
+        p["cross"] = init_attention(generator, cfg, lead=lead, device=device)
     p["mlp_norm"] = norm()
     if kind == "moe":
         p["mlp"] = init_moe(generator, cfg, lead=lead, device=device)
@@ -120,16 +137,27 @@ def init_block(generator, cfg, layer_idx: int, *, lead: tuple = (),
 
 def init_blocks(generator, cfg, *, device=None):
     """The decoder blocks after ``block0``: stacked on a leading layers axis
-    (``scan_layers``), or a per-layer list (hymba, xLSTM)."""
+    (``scan_layers``), or a per-layer list (hymba, xLSTM); with cross
+    attention in an encoder-decoder."""
     if cfg.family == "ssm":
         return [init_xlstm_block(generator, cfg, i, device=device)
                 for i in range(cfg.n_layers)]
     start = first_stacked_layer(cfg)
+    cross = cfg.encoder_layers > 0
     if cfg.scan_layers:
         return init_block(generator, cfg, start,
-                          lead=(cfg.n_layers - start,), device=device)
-    return [init_block(generator, cfg, i, device=device)
+                          lead=(cfg.n_layers - start,),
+                          cross_attention=cross, device=device)
+    return [init_block(generator, cfg, i, cross_attention=cross,
+                       device=device)
             for i in range(start, cfg.n_layers)]
+
+
+def encoder_config(cfg):
+    """The encoder's config: the decoder's without MoE, hybrid, SSM or MLA
+    layers, as the reference builds it."""
+    return dataclasses.replace(cfg, n_routed_experts=0, hybrid=False,
+                               ssm_kind="", use_mla=False)
 
 
 def init_xlstm_block(generator, cfg, layer_idx: int, *, device=None) -> Params:
@@ -170,32 +198,52 @@ def block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
                 cache_index: Optional[torch.Tensor] = None,
                 slots: Optional[torch.Tensor] = None, max_len: int = 0,
                 fused: bool = True, norm_in: Optional[torch.Tensor] = None,
-                keep_f32: bool = False):
-    """Apply one attention block (dense, MoE, MLA or hybrid).  Returns
-    (x, resid, new_cache): ``x`` the bf16 residual stream and, with
-    ``keep_f32``, ``resid`` the same sum in f32 before its rounding (else
-    None).
+                keep_f32: bool = False, causal: bool = True,
+                enc_out: Optional[torch.Tensor] = None):
+    """Apply one attention block (dense, MoE, MLA, hybrid, an encoder block
+    or a decoder block with cross attention).  Returns (x, resid,
+    new_cache): ``x`` the bf16 residual stream and, with ``keep_f32``,
+    ``resid`` the same sum in f32 before its rounding (else None).  In
+    train mode the third element is the block's MoE load-balancing loss
+    (0 for other kinds) in place of a cache.
 
-    mode: "prefill" (build this layer's cache for ``max_len`` positions) or
-    "decode" (update ``cache`` in place at ``[slots, cache_index]``;
-    ``max_len`` is the length the caller retires a row at, 0 if unknown:
-    see ``decode_kv``).  ``layer_idx`` picks the block kind and the
-    window; a scan-stacked layer passes the stack's first index, as the
-    reference's ``scan_blocks`` does.
+    mode: "train" (the whole sequence through ``layers.train_attention``,
+    no cache), "encode" (the whole sequence through the flash kernel, no
+    cache: the serving encoder), "prefill" (build this layer's cache for
+    ``max_len`` positions) or "decode" (update ``cache`` in place at
+    ``[slots, cache_index]``; ``max_len`` is the length the caller retires
+    a row at, 0 if unknown: see ``decode_kv``).  ``layer_idx`` picks the
+    block kind and the window; a scan-stacked layer passes the stack's
+    first index, as the reference's ``scan_blocks`` does.  ``causal`` is
+    False for an encoder block.  A block with cross attention (``"cross"``
+    in ``p``) attends over ``enc_out`` (B, F, D) projected through
+    ``cross.wk`` / ``cross.wv`` in train and prefill mode, keeping the
+    projections as ``cross_k`` / ``cross_v`` in its prefill cache, and over
+    those cached rows at decode (``cross_attention``).
 
     ``fused``: the reference's compiled block (a scan body, a jitted
     decode) feeds the MLP norm the f32 residual sum before it is rounded
     to bf16 (XLA's default excess precision removes that round trip); an
     eagerly run block (an unrolled prefill, ``block0``'s prefill) rounds
-    it first.  (Its hybrid combine rounds every step either way.)
-    ``norm_in`` is what the attention norm reads (default ``x``): an
-    unrolled compiled decode passes the previous block's f32 ``resid``."""
+    it first.  (Its hybrid combine rounds every step either way.)  With
+    cross attention the same holds for the cross norm, which reads the
+    attention residual sum.  ``norm_in`` is what the attention norm reads
+    (default ``x``): an unrolled compiled decode passes the previous
+    block's f32 ``resid``."""
     kind = block_kind(cfg, layer_idx)
     window = layer_window(cfg, layer_idx)
     h = apply_norm(p["attn_norm"], x if norm_in is None else norm_in,
                    cfg.norm_kind).to(x.dtype)
     new_cache: dict = {}
-    if mode == "prefill":
+    if mode in ("train", "encode"):
+        train = mode == "train"
+        if cfg.use_mla:
+            y, _ = mla_block(p["attn"], h, cfg, positions=positions,
+                             train=train)
+        else:
+            y, _ = attention_block(p["attn"], h, cfg, positions=positions,
+                                   window=window, causal=causal, train=train)
+    elif mode == "prefill":
         if cfg.use_mla:
             y, latents = mla_block(p["attn"], h, cfg, positions=positions,
                                    return_kv=True)
@@ -203,7 +251,8 @@ def block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
                 latents, layer_cap(max_len, window), positions, cfg.dtype)
         else:
             y, kv = attention_block(p["attn"], h, cfg, positions=positions,
-                                    window=window, return_kv=True)
+                                    window=window, causal=causal,
+                                    return_kv=True)
             new_cache["kv"] = assemble_kv_cache(
                 kv, layer_cap(max_len, window), positions, cfg.dtype)
     else:
@@ -217,26 +266,87 @@ def block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
             ys = _step_rows(ssm.mamba_step, p["ssm"], h, cfg, cache["ssm"],
                             slots)
         else:
-            ys, new_cache["ssm"] = ssm.mamba_chunked(p["ssm"], h, cfg)
+            ys, state = ssm.mamba_chunked(p["ssm"], h, cfg)
+            if mode == "prefill":
+                new_cache["ssm"] = state
         y = 0.5 * (apply_norm(p["attn_out_norm"], y, "rmsnorm")
                    + apply_norm(p["ssm_out_norm"], ys, "rmsnorm"))
 
     resid = x.float() + y.float()
+    if "cross" in p:
+        x = resid.to(x.dtype)
+        hc = apply_norm(p["cross_norm"], resid if fused else x,
+                        cfg.norm_kind).to(x.dtype)
+        yc = cross_attention(p["cross"], hc, cfg, mode=mode,
+                             positions=positions, enc_out=enc_out,
+                             cache=cache, slots=slots, new_cache=new_cache)
+        resid = x.float() + yc.float()
     if fused:
         h = apply_norm(p["mlp_norm"], resid, cfg.norm_kind).to(x.dtype)
         x = resid.to(x.dtype)
     else:
         x = resid.to(x.dtype)
         h = apply_norm(p["mlp_norm"], x, cfg.norm_kind)
+    aux = None
     if kind == "moe":
-        y, _ = moe_block(p["mlp"], h, cfg, capacity_factor=cfg.capacity_factor,
-                         no_drop=(mode == "decode"))
+        y, aux = moe_block(p["mlp"], h, cfg,
+                           capacity_factor=cfg.capacity_factor,
+                           no_drop=(mode == "decode"))
     else:
         y = mlp_block(p["mlp"], h, cfg)
+    if mode == "train":
+        new_cache = aux if aux is not None else x.new_zeros((), dtype=torch.float32)
     if not keep_f32:
         return x + y, None, new_cache
     resid = x.float() + y.float()
     return resid.to(x.dtype), resid, new_cache
+
+
+def cross_attention(p: Params, hc: torch.Tensor, cfg, *, mode: str,
+                    positions, enc_out, cache, slots, new_cache: dict):
+    """A decoder block's attention over the encoder output, as the
+    reference's ``block_apply`` does it: K/V are ``enc_out`` projected
+    through ``p["wk"]`` / ``p["wv"]`` (no RoPE), kept in ``new_cache`` as
+    ``cross_k`` / ``cross_v`` at prefill, and read back from the cache
+    rows ``slots`` at decode; the attention is non-causal (train:
+    ``layers.train_attention``; else the flash kernel, at decode with one
+    query row)."""
+    if mode == "decode":
+        rows = slots.to(torch.int64)
+        kv = (cache["cross_k"][rows], cache["cross_v"][rows])
+    else:
+        ek = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
+        ev = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+        kv = (ek, ev)
+        if mode == "prefill":
+            new_cache["cross_k"], new_cache["cross_v"] = ek, ev
+    yc, _ = attention_block(p, hc, cfg, positions=positions, kv_override=kv,
+                            causal=False, train=(mode == "train"))
+    return yc
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for ``remat_policy="dots"``: keep
+    the outputs of matrix products, recompute the rest (the reference's
+    ``checkpoint_dots``)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+              torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, cfg):
+    """``fn`` under the reference's ``_remat``: with ``cfg.remat`` and
+    policy "nothing", every activation inside is recomputed in the backward
+    pass (``torch.utils.checkpoint``, non-reentrant); "dots" keeps the
+    matrix products' outputs; "full" (or no remat) returns ``fn``."""
+    if not cfg.remat or cfg.remat_policy == "full":
+        return fn
+    kw = dict(use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    return lambda *a, **k: checkpoint(fn, *a, **kw, **k)
 
 
 def _step_rows(step, p, h, cfg, state: dict, slots: torch.Tensor):
@@ -257,8 +367,11 @@ def xlstm_block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
     bf16 residual stream and ``resid`` the same sum in f32 before its
     rounding.
 
-    mode: "prefill" (run the whole prompt from the empty state; the new
-    cache is ``{"ssm": final state}``) or "decode" (step the rows at
+    mode: "train" (the whole sequence from the empty state through the
+    torch chunked scan, ``ref.mlstm_chunked_ref``, never the forward-only
+    kernel; no cache, ``new_cache`` None), "prefill" (run the whole prompt
+    from the empty state; the new cache is ``{"ssm": final state}``) or
+    "decode" (step the rows at
     ``slots`` of ``cache`` and write their new state back in place).
     Slots must be distinct: duplicate rows in an in-place write have no
     defined winner.  ``norm_in`` is what the block's norm reads (default
@@ -271,10 +384,13 @@ def xlstm_block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
         step = ssm.mlstm_step if kind == "mlstm" else ssm.slstm_step
         y = _step_rows(step, p["mix"], h, cfg, cache["ssm"], slots)
         new_cache = cache
+    elif kind == "mlstm":
+        y, state = ssm.mlstm_chunked(p["mix"], h, cfg, state=None,
+                                     use_kernel=mode != "train")
+        new_cache = None if mode == "train" else {"ssm": state}
     else:
-        fwd = ssm.mlstm_chunked if kind == "mlstm" else ssm.slstm_forward
-        y, state = fwd(p["mix"], h, cfg, state=None)
-        new_cache = {"ssm": state}
+        y, state = ssm.slstm_forward(p["mix"], h, cfg, state=None)
+        new_cache = None if mode == "train" else {"ssm": state}
     resid = x.float() + y.float()
     return resid.to(x.dtype), resid, new_cache
 
@@ -450,10 +566,12 @@ def ring_decode_attention(p, h, cfg, *, positions, cache, cache_index, slots,
 # ---------------------------------------------------------------------------------
 
 def init_layer_cache(cfg, layer_idx: int, batch: int, max_len: int,
-                     dtype=torch.bfloat16, *, lead: tuple = (),
-                     device=None) -> dict:
+                     dtype=torch.bfloat16, *, enc_len: int = 0,
+                     lead: tuple = (), device=None) -> dict:
     """Zeroed decode cache of one attention layer (``lead`` stacks it),
-    ``pos`` -1 everywhere; a hybrid layer adds the empty Mamba-2 state."""
+    ``pos`` -1 everywhere; a hybrid layer adds the empty Mamba-2 state, a
+    decoder layer of an encoder-decoder ``cross_k`` / ``cross_v`` of
+    ``enc_len`` positions."""
     cap = layer_cap(max_len, layer_window(cfg, layer_idx))
     rows = lead + (batch, cap)
 
@@ -469,17 +587,23 @@ def init_layer_cache(cfg, layer_idx: int, batch: int, max_len: int,
     c = {"kv": kv}
     if block_kind(cfg, layer_idx) == "hybrid":
         c["ssm"] = ssm.init_mamba_state(batch, cfg, lead=lead, device=device)
+    if cfg.encoder_layers:
+        cross = lead + (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        c["cross_k"] = torch.zeros(cross, dtype=dtype, device=device)
+        c["cross_v"] = torch.zeros(cross, dtype=dtype, device=device)
     return c
 
 
 def init_attention_caches(cfg, batch: int, max_len: int,
-                          dtype=torch.bfloat16, device=None) -> dict:
-    """``{"blocks": ..., ["block0": ...]}`` of an attention decoder."""
+                          dtype=torch.bfloat16, device=None,
+                          enc_len: int = 0) -> dict:
+    """``{"blocks": ..., ["block0": ...]}`` of an attention decoder
+    (``enc_len``: an encoder-decoder's cross cache length)."""
     start = first_stacked_layer(cfg)
     caches: dict = {}
     if start:
         caches["block0"] = init_layer_cache(cfg, 0, batch, max_len, dtype,
-                                            device=device)
+                                            enc_len=enc_len, device=device)
     if cfg.scan_layers:
         # the reference stacks per-layer caches, which fails when their
         # lengths differ (a global layer among sliding ones)
@@ -489,11 +613,11 @@ def init_attention_caches(cfg, batch: int, max_len: int,
             raise ValueError(f"{cfg.name}: a scan-stacked tree cannot hold "
                              f"caches of lengths {sorted(caps)}")
         caches["blocks"] = init_layer_cache(
-            cfg, start, batch, max_len, dtype, lead=(cfg.n_layers - start,),
-            device=device)
+            cfg, start, batch, max_len, dtype, enc_len=enc_len,
+            lead=(cfg.n_layers - start,), device=device)
     else:
         caches["blocks"] = [init_layer_cache(cfg, i, batch, max_len, dtype,
-                                             device=device)
+                                             enc_len=enc_len, device=device)
                             for i in range(start, cfg.n_layers)]
     return caches
 

@@ -82,7 +82,13 @@ print(json.dumps({"modules": mods, "bad": bad}))
                  "repro_torch.cluster.router", "repro_torch.bench.chaos",
                  "repro_torch.loader", "repro_torch.loader.sharded_weights",
                  "repro_torch.loader.pooled_loader",
-                 "repro_torch.bench.tp", "repro_torch.bench.quant"):
+                 "repro_torch.bench.tp", "repro_torch.bench.quant",
+                 "repro_torch.models.frontends", "repro_torch.data",
+                 "repro_torch.data.pipeline", "repro_torch.training",
+                 "repro_torch.training.optimizer",
+                 "repro_torch.training.train_loop",
+                 "repro_torch.training.checkpoint",
+                 "repro_torch.launch.train"):
         assert name in result["modules"]
     assert result["bad"] == []
 
@@ -105,12 +111,18 @@ LOADER_IMPORT_RE = re.compile(
     re.MULTILINE)
 
 
-@pytest.mark.parametrize("name", ["__init__.py", "sharded_weights.py",
-                                  "pooled_loader.py"])
+@pytest.mark.parametrize("name", ["loader/__init__.py",
+                                  "loader/sharded_weights.py",
+                                  "loader/pooled_loader.py",
+                                  "training/checkpoint.py", "convert.py"],
+                         ids=["__init__.py", "sharded_weights.py",
+                              "pooled_loader.py", "checkpoint.py",
+                              "convert.py"])
 def test_loader_reads_bf16_without_ml_dtypes(name):
-    """The loader names bf16 "bfloat16" as the reference does but reads and
-    writes its bits as uint16: no ``jax``, ``ml_dtypes`` or ``repro.``
-    import in ``repro_torch/loader``."""
-    with open(os.path.join(PKG, "loader", name)) as f:
+    """The loader and the training checkpoints name bf16 "bfloat16" as the
+    reference does but read and write its bits as uint16, and ``convert``
+    moves them as uint16 too: no ``jax``, ``ml_dtypes`` or ``repro.``
+    import in these modules."""
+    with open(os.path.join(PKG, name)) as f:
         text = f.read()
     assert LOADER_IMPORT_RE.findall(text) == []

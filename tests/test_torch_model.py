@@ -272,17 +272,19 @@ def test_model_without_device_needs_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("arch,change,feature", [
-    ("internvl2-76b", {}, "encoders and frontends"),
-    ("seamless-m4t-medium", {}, "encoders and frontends"),
+    ("internvl2-76b", {"family": "video"}, "family 'video'"),
+    ("seamless-m4t-medium", {"hybrid": True, "ssm_kind": "rwkv"},
+     "hybrid ssm_kind 'rwkv'"),
 ])
 def test_unported_families_raise(arch, change, feature):
-    """Every arch's config loads (it prices); the model refuses the
-    families still to port (encoders and frontends), naming the missing
-    feature and the ROADMAP item that ports them."""
+    """Every arch in ARCH_IDS runs, the encoder-decoder and vision
+    families too; the model refuses a layout no registered config uses,
+    naming the missing feature."""
+    Model(t_smoke(get_config(arch)), device="cpu")
     cfg = dataclasses.replace(t_smoke(get_config(arch)), **change)
     with pytest.raises(NotImplementedError, match=feature) as err:
         Model(cfg, device="cpu")
-    assert "ROADMAP.md, Queue 1 item 2" in str(err.value)
+    assert "not ported to PyTorch" in str(err.value)
 
 
 def _same_dtype(jdtype, tdtype) -> bool:
