@@ -30,6 +30,14 @@ serves full-width seamless-m4t-medium model-level over stub frames (its
 encoder and cross attention on the flash kernel, decode on the paged
 kernel; trained too, gradients reaching its encoder and cross attention)
 and internvl2-76b at 8 of its 80 layers after a stub patch prefix,
+serves nemotron-4-340b at 4 of its 96 layers (GQA 96/8 at head dim 192:
+the paged kernel's D = 192 instantiation), re-places the training
+checkpoint onto a 1x1 CUDA ``DeviceMesh`` (``launch/elastic.py``; every
+leaf bit-equal, the same tokens served), counts olmo-1b's decode step,
+prefills and train step with the cost counter
+(``launch/cost_analysis.py``) beside the profiler's device time, runs
+four dry-run cells (``launch/dryrun.py``: fake process group, meta
+DTensors) on the card's host,
 checks that each path went through its kernels
 (launch counters: flash + paged for the dense models and the clusters,
 the chunked mLSTM scan for xlstm-1.3b, dequant once per quantized
@@ -47,7 +55,8 @@ profiled decode step's lengths back to back, after idle and after a
 GEMM; the mLSTM kernel at the longest prompt and summed over one main
 path run's prefills; the dequant kernel at a restore's shape, one list
 call against 32 single calls; flash and paged at qwen1.5-4b's,
-qwen3p6-27b's and qwen3-32b's head layouts; flash at deepseek-v2-lite's
+qwen3p6-27b's, qwen3-32b's and nemotron-4-340b's head layouts; flash at
+deepseek-v2-lite's
 D = 192, at hymba's windowed layout and at seamless-m4t-medium's cross
 attention and encoder).  It prints
 the card's name and power limit, one ``{"kernels": [...]}`` line, and as
@@ -154,6 +163,15 @@ VLM = dict(n_layers=8, batch=4, prompt_len=64, new_tokens=32)
 #: first two restore-corruption draws (0.355, 0.031) fall below 0.5, so a
 #: restore redoes twice (the restore policy's cap) on either path
 RESTORE_FAULTS = dict(seed=1, restore_corruption_p=0.5)
+#: nemotron-4-340b cut to 4 of its 96 layers for one card (every width as
+#: published: 23,253,221,376 parameters, 46.51 GB in bf16)
+NEMOTRON = dict(n_layers=4)
+#: the dry run's cells on the card's host (fake process group, meta
+#: tensors): olmo-1b's three shapes on one pod, deepseek-moe-16b's decode
+#: (expert parallel) on two
+DRYRUN = (("olmo-1b", "train_4k", False), ("olmo-1b", "prefill_32k", False),
+          ("olmo-1b", "decode_32k", False),
+          ("deepseek-moe-16b", "decode_32k", True))
 F32_SLACK = 2.0 ** -22
 #: what phase_profile saw of the paged kernel, by model: the lengths of a
 #: profiled decode step and each launch's device time (us)
@@ -275,10 +293,15 @@ def phase_flash(gen) -> float:
             dict(b=1, sq=1536, sk=1536, h=25, kv=5, d=64, causal=True,
                  window=1024)]
     own_wide = torch.Generator(device=DEVICE).manual_seed(22)
+    # nemotron-4-340b's prefill: GQA 96/8 at D = 192 (the timed case first)
+    nemotron = [dict(b=1, sq=512, sk=512, h=96, kv=8, d=192, causal=True),
+                dict(b=2, sq=65, sk=65, h=96, kv=8, d=192, causal=True)]
+    own_nemotron = torch.Generator(device=DEVICE).manual_seed(24)
     worst = 0.0
     for c, g in ([(c, gen) for c in cases] + [(c, own) for c in added]
                  + [(c, own_layouts) for c in layouts]
-                 + [(c, own_wide) for c in wide]):
+                 + [(c, own_wide) for c in wide]
+                 + [(c, own_nemotron) for c in nemotron]):
         q = _randn(g, c["b"], c["sq"], c["h"], c["d"])
         k = _randn(g, c["b"], c["sk"], c["kv"], c["d"])
         v = _randn(g, c["b"], c["sk"], c["kv"], c["d"])
@@ -360,9 +383,18 @@ def phase_paged(gen) -> float:
                dict(b=8, h=64, kv=8, d=128, page=16, pages_max=64,
                     lengths=lens8, identity=True)]
     own_layouts = torch.Generator(device=DEVICE).manual_seed(20)
+    # D = 192 (the padded-lane instantiation) at nemotron-4-340b's decode
+    # layout (GQA 96/8: 12 query heads a KV head, two head groups) and at
+    # its split boundaries, from a generator of their own
+    nemotron = [dict(b=8, h=96, kv=8, d=192, page=16, pages_max=64,
+                     lengths=lens8, identity=True),
+                dict(b=4, h=96, kv=8, d=192, page=16, pages_max=64,
+                     lengths=at_splits(4, 8, 16, 64), identity=False)]
+    own_nemotron = torch.Generator(device=DEVICE).manual_seed(25)
     worst = 0.0
     for c, g in ([(c, gen) for c in cases] + [(c, own) for c in added]
-                 + [(c, own_layouts) for c in layouts]):
+                 + [(c, own_layouts) for c in layouts]
+                 + [(c, own_nemotron) for c in nemotron]):
         args = _paged_inputs(g, **c)
         out = ops.paged_attention(*args).float()
         torch.cuda.synchronize()
@@ -1489,6 +1521,7 @@ def phase_train(card: str) -> None:
                + [got_s["step"]])
         same = len(got) == len(kept) and all(
             _same_bits(a.detach().cpu(), b) for a, b in zip(got, kept))
+        phase_elastic(cfg, root, kept, got_p)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"train checkpoint ({cfg.name}, step {at}, {nbytes} bytes, "
@@ -1504,6 +1537,183 @@ def phase_train(card: str) -> None:
                                    "from the state saved")
     del model, params, state, kept, got, got_p, got_s, result
     torch.cuda.empty_cache()
+
+
+def phase_elastic(cfg, root: str, kept: list, trained) -> None:
+    """``launch/elastic.py::reshard`` of the checkpoint just written (the
+    full training state: parameters, mu, nu, step) onto a 1x1 CUDA
+    ``DeviceMesh`` of a one-rank NCCL group: every leaf must be bit-equal
+    to the state saved (``kept``, on the host); the wall time and GB/s.
+    Then ``MAIN``'s requests under the sync policy from the re-placed
+    parameters must give the tokens of the in-memory ``trained`` ones.
+    The group is destroyed after."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.elastic import free_port, reshard
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import leaves, tree_map
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            rank=0, world_size=1,
+                            init_method=f"tcp://localhost:{free_port()}")
+    try:
+        mesh = init_device_mesh(DEVICE, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reshard(root, cfg.name, mesh, cfg=cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        placed = (leaves(out["params"]) + leaves(out["opt"]["mu"])
+                  + leaves(out["opt"]["nu"]) + [out["opt"]["step"]])
+        local = [t.to_local() for t in placed]
+        nbytes = sum(t.numel() * t.element_size() for t in local)
+        same = len(local) == len(kept) and all(
+            _same_bits(a.detach().cpu(), b) for a, b in zip(local, kept))
+        kinds = sorted({str(tuple(t.placements)) for t in placed})
+        print(f"elastic reshard ({cfg.name}, step {out['step']}, "
+              f"{len(placed)} leaves, {nbytes} bytes) onto mesh "
+              f"{out['mesh']} ({mesh.device_type}, placements {kinds}): "
+              f"{wall:.2f} s ({nbytes / wall / 1e9:.3f} GB/s); every leaf "
+              f"bit-equal to the state saved {same}")
+        check(same, "the resharded state differs from the state saved")
+        params = tree_map(lambda t: t.to_local(), out["params"])
+        want, _, _ = _serve_sync(Model(cfg, params=trained, device=DEVICE),
+                                 "elastic in-memory")
+        got, counts, serve_wall = _serve_sync(
+            Model(cfg, params=params, device=DEVICE), "elastic re-placed")
+        print(f"elastic serving ({cfg.name}, {len(got)} requests, sync): "
+              f"tokens of the re-placed parameters equal the in-memory "
+              f"ones {got == want}; launches {counts}; wall "
+              f"{serve_wall:.3f} s")
+        check(got == want, "the re-placed parameters serve other tokens")
+        del out, placed, local, params
+    finally:
+        dist.destroy_process_group()
+
+
+def _kernel_flops(cfg, kind: str, lengths: list, rows: int = 1) -> float:
+    """Analytic operations of the attention kernels of one step (they run
+    through ctypes, out of the cost counter's sight): a causal prefill of
+    each of ``lengths`` (4 H D per unmasked (q, k) pair, every layer), or
+    one decode step of ``rows`` rows over ``lengths`` keys each."""
+    per = 4.0 * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    if kind == "prefill":
+        return per * sum(n * (n + 1) // 2 for n in lengths)
+    return per * sum(lengths) * rows // len(lengths)
+
+
+def phase_cost(model) -> None:
+    """The cost counter (``launch/cost_analysis.py``) over three steps of
+    full-width olmo-1b on the card: one decode step of ``MAIN``'s 8 rows,
+    the prefills of ``MAIN``'s 8 prompts, and one 8 x 512 train step.  Per
+    step: the counted flops and bytes, the kernel-substituted ones (the
+    marked regions' bytes swapped for ``dryrun.kernel_bytes``, the
+    kernels' analytic operations added: the counter cannot see inside a
+    ctypes launch), compute_s and memory_s on the H100 constants, and the
+    profiler's device-busy ms of the same step.  Each marked region must
+    have been entered as often as its wrapper launched."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.cost_analysis import CostCounter
+    from repro_torch.launch.dryrun import HBM_BW, PEAK_FLOPS, kernel_bytes
+    from repro_torch.training.optimizer import AdamWConfig, tree_map
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, cfg.vocab_size, (1, n), generator=gen
+                             ).to(DEVICE) for n in MAIN["prompt_lens"]]
+    rows, at = len(prompts), max(MAIN["prompt_lens"])
+    _, caches, _ = model.prefill(torch.randint(
+        1, cfg.vocab_size, (rows, at), generator=gen).to(DEVICE),
+        MAIN["max_len"])
+    step_tok = torch.randint(1, cfg.vocab_size, (rows, 1), generator=gen
+                             ).to(DEVICE)
+    index = torch.full((rows,), at, dtype=torch.int64, device=DEVICE)
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                      model.params)
+    opt = AdamWConfig()
+    state = init_train_state(params, opt)
+    train_step = make_train_step(cfg, opt)
+    batch = {k: torch.randint(1, cfg.vocab_size, (8, 512), generator=gen
+                              ).to(DEVICE) for k in ("tokens", "targets")}
+    batch["loss_mask"] = torch.ones((8, 512), device=DEVICE)
+    steps = {
+        "decode": (lambda: model.decode_step(caches, step_tok, index, None,
+                                             MAIN["max_len"]),
+                   [InputShape("decode", at + 1, rows, "decode")],
+                   _kernel_flops(cfg, "decode", [at + 1] * rows, rows)),
+        "prefill": (lambda: [model.prefill(p, MAIN["max_len"])
+                             for p in prompts],
+                    [InputShape("prefill", n, 1, "prefill")
+                     for n in MAIN["prompt_lens"]],
+                    _kernel_flops(cfg, "prefill", MAIN["prompt_lens"])),
+        "train": (lambda: train_step(params, state, batch), [], 0.0),
+    }
+    counters = _counters()
+    for name, (fn, shapes, k_flops) in steps.items():
+        for f in counters.values():
+            f.launches = 0
+        with CostCounter() as counter:
+            fn()
+            torch.cuda.synchronize()
+        r = counter.result()
+        launched = {k: f.launches for k, f in counters.items() if f.launches}
+        entered = r["region_entries"]
+        kb = {}
+        for sh in shapes:
+            for k, v in kernel_bytes(cfg, sh).items():
+                if k in launched:
+                    kb[k] = kb.get(k, 0) + v
+        marked = sum(r["marked_bytes"].values())
+        sub_bytes = r["bytes_accessed"] - marked + sum(kb.values())
+        sub_flops = r["flops"] + k_flops
+        busy = _kernel_breakdown(fn, f"cost {name}", calls=1, show=False)
+        print(f"cost counter {cfg.name} {name}: flops {r['flops']:.6g} "
+              f"(kernel-substituted {sub_flops:.6g}), bytes "
+              f"{r['bytes_accessed']:.6g} (no copies "
+              f"{r['bytes_accessed_no_copy']:.6g}; marked {marked:.6g} "
+              f"-> kernels {sum(kb.values()):.6g}: substituted "
+              f"{sub_bytes:.6g}); compute_s {sub_flops / PEAK_FLOPS:.6g} "
+              f"memory_s {sub_bytes / HBM_BW:.6g} (raw "
+              f"{r['flops'] / PEAK_FLOPS:.6g} / "
+              f"{r['bytes_accessed'] / HBM_BW:.6g}); device busy "
+              f"{_fmt(busy, '.4f')} ms (profiler); regions entered "
+              f"{entered}, launches {launched}; trip counts "
+              f"{r['trip_counts']}")
+        check(entered == launched, f"cost {name}: regions entered {entered}"
+                                   f", wrappers launched {launched}")
+    del params, state, caches
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun() -> None:
+    """``launch/dryrun.py::run_cell`` for ``DRYRUN``'s cells on the
+    card's host: a fake process group of 256 or 512 ranks, meta DTensors,
+    nothing on the card.  Every cell must come back ``ok``; each prints
+    its roofline terms (H100 constants)."""
+    from repro_torch.launch import dryrun
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    for arch, shape, multi_pod in DRYRUN:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod, force=True,
+                              out_dir=out_dir)
+        wall = time.perf_counter() - t0
+        if rec.get("status") != "ok":
+            print(f"dry run {arch} {shape} {rec['mesh']}: "
+                  f"{rec.get('status')} {rec.get('error', '')}\n"
+                  f"{rec.get('traceback', '')}")
+        check(rec.get("status") == "ok", f"dry run {arch} {shape}: "
+                                         f"{rec.get('status')}")
+        print(f"dry run {arch} {shape} {rec['mesh']} ({rec['chips']} ranks "
+              f"as {rec['exec_mesh']}, {wall:.1f} s): flops/device {rec['flops_per_device']:.6g}, "
+              f"bytes/device {rec['bytes_per_device']:.6g}, collective "
+              f"bytes {rec['collectives']['total_bytes']}; compute_s "
+              f"{rec['compute_s']:.6g} memory_s {rec['memory_s']:.6g} "
+              f"(kernel-substituted "
+              f"{rec['kernel_substitution']['memory_s']:.6g}) collective_s "
+              f"{rec['collective_s']:.6g}: {rec['dominant']}; useful "
+              f"{rec['useful_flops_ratio']:.4f}; local ops "
+              f"{rec['local_ops']}")
 
 
 def _greedy_serve(model, tokens, new_tokens: int, **frontend) -> dict:
@@ -3181,7 +3391,8 @@ def _time_encdec_flash(gen) -> dict:
 
 def _time_layouts(gen) -> dict:
     """The flash and paged kernels at the head layouts of qwen1.5-4b (H20
-    KV20), qwen3p6-27b (H40 KV8) and qwen3-32b (H64 KV8), D=128, beside SDPA (device time per
+    KV20), qwen3p6-27b (H40 KV8) and qwen3-32b (H64 KV8), D=128, and
+    nemotron-4-340b (H96 KV8, D=192), beside SDPA (device time per
     call, in turns) and their bounds: flash at S=512 causal, B=1; paged at
     the main path's decode shape (8 slots of a 1024-token cache, lengths =
     prompt + 16, one layer's cache: the timing line of the olmo-1b shape
@@ -3189,13 +3400,15 @@ def _time_layouts(gen) -> dict:
     bound_ms."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.paged_attention import ops as pa
-    b, page, d = len(MAIN["prompt_lens"]), 16, 128
+    b, page = len(MAIN["prompt_lens"]), 16
     pages_max = MAIN["max_len"] // page
     cap = pages_max * page
     lengths = [n + 16 for n in MAIN["prompt_lens"]]
     out = {}
-    for arch, h, kv in (("qwen1.5-4b", 20, 20), ("qwen3p6-27b", 40, 8),
-                        ("qwen3-32b", 64, 8)):
+    for arch, h, kv, d in (("qwen1.5-4b", 20, 20, 128),
+                           ("qwen3p6-27b", 40, 8, 128),
+                           ("qwen3-32b", 64, 8, 128),
+                           ("nemotron-4-340b", 96, 8, 192)):
         s = max(MAIN["prompt_lens"])
         q, k, v = (_randn(gen, 1, s, n, d) for n in (h, kv, kv))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -3544,6 +3757,7 @@ def main() -> None:
     for phase in (phase_chaos, phase_loader, phase_tp):
         more = phase(model)
         launches = {k: n + more[k] for k, n in launches.items()}
+    phase_cost(model)
     del model
     torch.cuda.empty_cache()
 
@@ -3592,6 +3806,19 @@ def main() -> None:
         del model
         torch.cuda.empty_cache()
 
+    # nemotron-4-340b at NEMOTRON's depth: GQA 96/8 at head dim 192 (flash
+    # and the paged kernel's D = 192 instantiation), squared-ReLU MLP of
+    # 73728, vocab 256000 untied
+    model = init_model("nemotron-4-340b", **NEMOTRON)
+    phase_model_check(model)
+    more = phase_main(model, attention_launches(model.cfg))
+    launches = {k: n + more[k] for k, n in launches.items()}
+    phase_profile(model)
+    print(f"nemotron-4-340b: peak allocated over its phases "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+    del model
+    torch.cuda.empty_cache()
+
     # hymba-1.5b (parallel attention + Mamba-2 heads, sliding-window ring
     # caches), deepseek-moe-16b (MoE after a dense layer 0) and
     # deepseek-v2-lite-16b (MLA on MoE: flash at D = 192, absorbed decode
@@ -3637,6 +3864,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     phase_drift()
+    phase_dryrun()
     rows = phase_timings(gen, launches, errs)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": rows}))

@@ -5,12 +5,15 @@ The largest assigned cell: FSDP + sequence-sharded activations are required
 for the train_4k shape to approach fitting (see EXPERIMENTS.md §Dry-run for
 the measured per-device bytes).
 
-``fsdp``, ``seq_shard_activations`` and ``remat_policy`` are sharding and
-training hints for a device mesh (ROADMAP.md, Queue 1 item 6).  On one card
-they are carried as data and ignored.  At full width the weights (682 GB in
-bf16) fit no card, and its head_dim of 192 is one neither attention kernel
-is built for; the model runs at smoke width on the CPU, and the config
-prices full width.
+``fsdp`` and ``seq_shard_activations`` are sharding hints for a device
+mesh: ``models/shardings.py`` reads them in the dry run
+(``launch/dryrun.py``: FSDP gather-on-use, Megatron-style sequence
+sharding of the activations); ``remat_policy`` is the training step's.
+On one card no resolver is installed and they change nothing.  At full
+width the weights (682 GB in bf16) fit no card; cut to 4 of its 96
+layers (every width kept, 46.51 GB) it serves on one H100, head_dim 192
+on the flash kernel and on the paged kernel's D = 192 instantiation
+(``chip_smoke.py``).
 """
 
 from repro_torch.configs.base import ModelConfig, register

@@ -1,9 +1,10 @@
 """qwen3-32b [dense]: 64L d_model=5120 64H (GQA kv=8) d_ff=25600
 vocab=151936 — qk_norm, GQA [hf:Qwen/Qwen3-8B].
 
-``fsdp`` and ``seq_shard_activations`` are sharding hints for a device mesh
-(ROADMAP.md, Queue 1 item 6).  On one card they are carried as data and
-ignored: the model holds every layer whole.
+``fsdp`` and ``seq_shard_activations`` are sharding hints for a device mesh,
+read by ``models/shardings.py`` in the dry run (``launch/dryrun.py``).  On
+one card no resolver is installed and they change nothing: the model holds
+every layer whole.
 """
 
 from repro_torch.configs.base import ModelConfig, register

@@ -5,7 +5,9 @@ card and runs the plain version (``ref.flash_attention_ref``) for tensors
 on the CPU.  There is no fallback: a CUDA tensor the kernel does not take
 raises, and so does an input that requires grad under grad mode (the
 kernel has no backward).  ``flash_attention.launches`` counts kernel
-launches.
+launches.  Meta tensors (the dry run) run the plain version as shape
+analysis under the region ``KERNEL_flash_attention``, which also marks
+the launch on the card.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import (gqa_local, kernel_region, plain_on_meta,
+                                 refuse_autograd)
 
 from .ref import flash_attention_ref
 
@@ -43,6 +46,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, D); k, v: (B, Sk, KV, D).  Returns (B, Sq, H, D)."""
     _check(q, k, v, window)
     refuse_autograd("flash_attention", q, k, v)
+    if q.device.type == "meta":
+        return plain_on_meta("flash_attention", _plain_local, q, k, v,
+                             causal=causal, window=window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -58,12 +64,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk, kv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    out = torch.empty_like(q)
     lib = _lib()
-    rc = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, kv, d, int(causal), int(window or 0),
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    with kernel_region("flash_attention"):
+        out = torch.empty_like(q)
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, sk, h, kv, d, int(causal), int(window or 0),
+            1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
@@ -72,6 +80,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def _plain_local(q, k, v, **kw):
+    k, v = gqa_local(q, k, v, head_dim=2)
+    return flash_attention_ref(q, k, v, **kw)
 
 
 def _lib() -> ctypes.CDLL:

@@ -8,7 +8,9 @@ backward; the model trains through ``ref.mlstm_chunked_ref``).
 ``mlstm_scan.launches`` counts kernel launches (one per call; the call
 runs the source's passes in order: stats, products (scores and the
 chunks' state contributions), combine (more than one chunk), out, after
-a widening of bf16 inputs).
+a widening of bf16 inputs).  Meta tensors (the dry run) run the plain
+version as shape analysis under the region ``KERNEL_mlstm_scan``, which
+also marks the launch on the card.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import kernel_region, plain_on_meta, refuse_autograd
 
 from .ref import mlstm_chunked_ref
 
@@ -55,10 +57,20 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, log_i, log_f, chunk, initial_state)
     refuse_autograd("mlstm_scan", q, k, v, log_i, log_f,
                     *(initial_state or ()))
+    if q.device.type == "meta":
+        # y keeps q's placements; C, n, m are (B, H, ...), q's batch and
+        # head dims
+        state_dims = {0: 0, 2: 1}
+        y, *state = plain_on_meta(
+            "mlstm_scan", _plain_flat, q, k, v, log_i, log_f, chunk=chunk,
+            initial_state=initial_state, align=True,
+            out_dims=({0: 0, 1: 1, 2: 2},) + (state_dims,) * 3)
+        return y, tuple(state)
     if q.device.type == "cpu":
         return mlstm_chunked_ref(q, k, v, log_i, log_f, chunk=chunk,
                                  initial_state=initial_state)
-    y, state, _ = _launch(q, k, v, log_i, log_f, chunk, initial_state)
+    with kernel_region("mlstm_scan"):
+        y, state, _ = _launch(q, k, v, log_i, log_f, chunk, initial_state)
     return y, state
 
 
@@ -166,6 +178,11 @@ def _launch(q, k, v, log_i, log_f, chunk, initial_state):
 
 
 mlstm_scan.launches = 0
+
+
+def _plain_flat(*args, **kw):
+    y, state = mlstm_chunked_ref(*args, **kw)
+    return (y, *state)
 
 
 def _lib() -> ctypes.CDLL:

@@ -23,8 +23,10 @@
 //   into shared memory first; its pages then stream through a ring of
 //   NSTAGE page stages (K and V) with 16-byte cp.async copies, NSTAGE - 1
 //   pages ahead of the one being computed.
-// - No single-thread phase.  Thread t owns the 16-byte chunk t % (D/8) of a
-//   K/V row and belongs to row group t / (D/8).  q of the block's query
+// - No single-thread phase.  Thread t owns the 16-byte chunk t % LPR of a
+//   K/V row and belongs to row group t / LPR, LPR = D/8 lanes rounded up to
+//   a power of two (D = 192: 24 chunks on 32 lanes, the last 8 idle, so a
+//   row group is one warp and the shuffles stay power-of-two).  q of the block's query
 //   heads sits in registers, pre-scaled in f32.  Row group rg takes tokens
 //   rg, rg + NRG, ... of each page: a score is 8 products per lane summed
 //   over the group's lanes by shuffles, and the group keeps its own online
@@ -50,7 +52,7 @@
 //
 // Layout: q (B, H, D), k_pages and v_pages (P, page, KV, D), block_tables
 // (B, pages_max) int32, lengths (B,) int32, out (B, H, D); all contiguous,
-// q and the pages 16-byte aligned, D in {32, 64, 128, 256}.  Grid (splits,
+// q and the pages 16-byte aligned, D in {32, 64, 128, 192, 256}.  Grid (splits,
 // KV * groups, B), 128 threads.  Workspace (B, KV * groups, splits, hb,
 // D + 2) f32 with hb = min(H/KV, HEADS_MAX): each slot holds acc (hb x D),
 // then m (hb), then l (hb).  Workspace and counters are needed only when
@@ -112,15 +114,23 @@ __device__ __forceinline__ void unpack8(const uint4 raw, float (&f)[8]) {
   }
 }
 
+// Lanes per K/V row: D/8 chunks of 8 elements, rounded up to a power of two
+template <int D>
+__host__ __device__ constexpr int lanes_per_row() {
+  int n = 1;
+  while (n < D / 8) n *= 2;
+  return n;
+}
+
 // Page `pid`'s K and V rows of KV head g into one ring stage (K then V)
 template <int D>
 __device__ __forceinline__ void load_page(__nv_bfloat16* ks, const Params& p,
                                           int pid, int g) {
-  constexpr int LPR = D / 8;
+  constexpr int CH = D / 8;             // 16-byte chunks of a row
   __nv_bfloat16* vs = ks + p.page * D;
   const size_t base = ((size_t)pid * p.page * p.kv + g) * D;
-  for (int c = threadIdx.x; c < p.page * LPR; c += THREADS) {
-    const int tok = c / LPR, ch = c % LPR;
+  for (int c = threadIdx.x; c < p.page * CH; c += THREADS) {
+    const int tok = c / CH, ch = c % CH;
     const size_t off = base + (size_t)tok * p.kv * D + ch * 8;
     cp_async16(ks + tok * D + ch * 8, p.k + off);
     cp_async16(vs + tok * D + ch * 8, p.v + off);
@@ -129,7 +139,7 @@ __device__ __forceinline__ void load_page(__nv_bfloat16* ks, const Params& p,
 
 template <int D, int R>
 size_t smem_bytes(int page, int pps) {
-  constexpr int NRG = THREADS / (D / 8);
+  constexpr int NRG = THREADS / lanes_per_row<D>();
   const size_t ring = (size_t)NSTAGE * 2 * page * D * sizeof(__nv_bfloat16)
                       + sizeof(int) * pps;
   const size_t merge = sizeof(float) * (size_t)NRG * R * (D + 2);
@@ -140,14 +150,15 @@ size_t smem_bytes(int page, int pps) {
 template <int D, int R>
 __global__ void __launch_bounds__(THREADS)
 paged_split_kernel(const Params p) {
-  constexpr int LPR = D / 8;            // lanes per K/V row, 8 elements each
-  constexpr int NRG = THREADS / LPR;    // row groups
+  constexpr int LPR = lanes_per_row<D>();  // lanes per K/V row
+  constexpr int NRG = THREADS / LPR;       // row groups
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int is_last;
   const int split = blockIdx.x, bg = blockIdx.y, b = blockIdx.z;
   const int g = bg / p.groups, h0 = (bg % p.groups) * HEADS_MAX;
   const int nh = min(HEADS_MAX, p.rep - h0);   // this block's query heads
   const int t = threadIdx.x, rg = t / LPR, cl = t % LPR;
+  const bool lane_live = cl < D / 8;       // false only for D = 192's pad
 
   const int length = max(p.lengths[b], 0);
   const int n_pages =
@@ -173,7 +184,7 @@ paged_split_kernel(const Params p) {
       p.q + ((size_t)b * p.h + (size_t)g * p.rep + h0) * D + cl * 8;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    if (r < nh) {
+    if (r < nh && lane_live) {
       unpack8(*reinterpret_cast<const uint4*>(qb + (size_t)r * D), qr[r]);
 #pragma unroll
       for (int j = 0; j < 8; ++j) qr[r][j] *= p.scale;
@@ -212,9 +223,11 @@ paged_split_kernel(const Params p) {
     const __nv_bfloat16* vs = ks + p.page * D;
     const int valid = min(p.page, length - (j0 + i) * p.page);
     for (int tok = rg; tok < valid; tok += NRG) {
-      float kf[8], vf[8];
-      unpack8(*reinterpret_cast<const uint4*>(ks + tok * D + cl * 8), kf);
-      unpack8(*reinterpret_cast<const uint4*>(vs + tok * D + cl * 8), vf);
+      float kf[8] = {}, vf[8] = {};
+      if (lane_live) {
+        unpack8(*reinterpret_cast<const uint4*>(ks + tok * D + cl * 8), kf);
+        unpack8(*reinterpret_cast<const uint4*>(vs + tok * D + cl * 8), vf);
+      }
       float s[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -255,9 +268,12 @@ paged_split_kernel(const Params p) {
         m_s[rg * R + r] = m[r];
         l_s[rg * R + r] = l[r];
       }
-      float4* dst = reinterpret_cast<float4*>(a_s + (rg * R + r) * D + cl * 8);
-      dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+      if (lane_live) {
+        float4* dst =
+            reinterpret_cast<float4*>(a_s + (rg * R + r) * D + cl * 8);
+        dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+      }
     }
   }
   __syncthreads();
@@ -399,6 +415,7 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
     case 32: return launch_d<32>(p, b, s);
     case 64: return launch_d<64>(p, b, s);
     case 128: return launch_d<128>(p, b, s);
+    case 192: return launch_d<192>(p, b, s);
     case 256: return launch_d<256>(p, b, s);
     default: return (int)cudaErrorInvalidValue;
   }

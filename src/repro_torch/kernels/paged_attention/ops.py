@@ -5,7 +5,9 @@ card and runs the plain version (``ref.paged_attention_ref``) for tensors
 on the CPU.  There is no fallback: a CUDA tensor the kernel does not take
 raises, and so does an input that requires grad under grad mode (the
 kernel has no backward).  ``paged_attention.launches`` counts kernel
-launches (one per call).
+launches (one per call).  Meta tensors (the dry run) run the plain
+version as shape analysis under the region ``KERNEL_paged_attention``,
+which also marks the launch on the card.
 
 The kernel splits each row's pages over blocks (flash-decoding).
 ``pages_per_split`` is the host's split plan, from the shapes alone (the
@@ -20,7 +22,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import kernel_region, plain_on_meta, refuse_autograd
 
 from .ref import paged_attention_ref
 
@@ -34,7 +36,7 @@ GRID_CAP = 16 * 132
 #: a KV head go to further head groups
 HEADS_PER_BLOCK = 8
 #: head dims the kernel is built for
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 192, 256)
 
 
 def pages_per_split(b: int, kv: int, pages_max: int, page: int) -> int:
@@ -76,6 +78,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     (B, pages_max) int32; lengths: (B,) int32.  Returns (B, H, D)."""
     _check(q, k_pages, v_pages, block_tables, lengths)
     refuse_autograd("paged_attention", q, k_pages, v_pages)
+    if q.device.type == "meta":
+        return plain_on_meta("paged_attention", paged_attention_ref, q,
+                             k_pages, v_pages, block_tables, lengths)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths)
     if q.device.type != "cuda":
@@ -100,9 +105,17 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if pages_max < 1 or b > 65535:
         raise ValueError(f"paged_attention: pages_max {pages_max} must be "
                          f">= 1 and B {b} <= 65535")
-    out = torch.empty_like(q)
     if b == 0:
-        return out
+        return torch.empty_like(q)
+    with kernel_region("paged_attention"):
+        return _launch(q, k_pages, v_pages, block_tables, lengths)
+
+
+def _launch(q, k_pages, v_pages, block_tables, lengths):
+    b, h, d = q.shape
+    page, kv = k_pages.shape[1], k_pages.shape[2]
+    pages_max = block_tables.shape[1]
+    out = torch.empty_like(q)
     pps = pages_per_split(b, kv, pages_max, page)
     splits = -(-pages_max // pps)
     stream = torch.cuda.current_stream(q.device).cuda_stream

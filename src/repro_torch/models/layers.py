@@ -17,15 +17,23 @@ differentiates them: ``train_attention`` follows ``cfg.attn_impl`` as the
 reference's ``attention_core`` does (``dense_attention`` or
 ``blockwise_attention``).  MLA's absorbed decode and the
 MoE dispatch and expert products are jnp code in the reference, outside
-any Pallas kernel, and plain torch here.  MoE runs on one device: the
-reference's expert-parallel ``shard_map`` is still to port (ROADMAP.md,
-Queue 1 item 4).
+any Pallas kernel, and plain torch here.  MoE runs on one device unless
+``set_moe_mesh`` names a mesh: then its experts run expert-parallel, a
+``local_map`` over the mesh standing in for the reference's
+``shard_map`` (``moe_block``).
+
+Sharding hints: ``shard_hint`` redistributes a DTensor activation to the
+placements the installed resolver gives (``set_activation_resolver``;
+``ShardingRules.resolver``).  With no resolver installed, as on the
+serving and training paths, it returns its input untouched.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -33,35 +41,65 @@ import torch.nn.functional as F
 Params = dict  # nested dict of tensors
 
 NEG_INF = -1e30
+F32 = torch.float32
 
 
 # ---------------------------------------------------------------------------------
 # Initialization helpers
 # ---------------------------------------------------------------------------------
 
-def make_param(generator: torch.Generator, shape: tuple, *,
-               fan_in: Optional[int] = None, dtype=torch.bfloat16,
+#: the axes tables open now (``record_axes``), innermost last
+_AXES_TABLES: list[dict] = []
+
+
+@contextlib.contextmanager
+def record_axes():
+    """Collect the logical axes of every parameter ``make_param`` makes
+    inside: yields a table id(tensor) -> axes (``model.param_axes`` turns
+    it into a tree shaped like the parameters)."""
+    table: dict = {}
+    _AXES_TABLES.append(table)
+    try:
+        yield table
+    finally:
+        _AXES_TABLES.pop()
+
+
+def make_param(generator: torch.Generator, shape: tuple, axes: tuple = (),
+               *, fan_in: Optional[int] = None, dtype=torch.bfloat16,
                device=None, zeros: bool = False, ones: bool = False,
                lead: tuple = ()) -> torch.Tensor:
     """A parameter of shape ``lead + shape`` drawn from ``generator``:
     normal / sqrt(fan_in), or zeros / ones.  ``fan_in`` defaults to
-    ``shape[0]``.
+    ``shape[0]``.  ``axes`` names each dim of ``shape`` logically (the
+    reference's ``Param.axes``: "embed", "heads", "mlp", ...); a stacked
+    parameter's leading axis is "layers".  The names go to the open
+    ``record_axes`` table, not into the tensor.
 
     A stacked parameter (``lead``, the layers axis) is drawn one ``shape``
     slice at a time into a preallocated ``dtype`` tensor, so the f32
     scratch is one slice: drawing qwen3-32b's (64, 5120, 25600) ``wi`` whole
-    would take 33.6 GB of f32, twice, beside the weights already drawn."""
+    would take 33.6 GB of f32, twice, beside the weights already drawn.
+    On ``device="meta"`` (abstract parameters) nothing is drawn and the
+    generator is not read."""
     full = tuple(lead) + tuple(shape)
     if zeros:
-        return torch.zeros(full, dtype=dtype, device=device)
-    if ones:
-        return torch.ones(full, dtype=dtype, device=device)
-    scale = 1.0 / math.sqrt(max(1, fan_in if fan_in is not None else shape[0]))
-    out = torch.empty(full, dtype=dtype, device=device)
-    for part in out.view(-1, *shape):
-        v = torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        part.copy_(v.mul_(scale))
+        out = torch.zeros(full, dtype=dtype, device=device)
+    elif ones:
+        out = torch.ones(full, dtype=dtype, device=device)
+    else:
+        out = torch.empty(full, dtype=dtype, device=device)
+        if out.device.type != "meta":
+            scale = 1.0 / math.sqrt(
+                max(1, fan_in if fan_in is not None else shape[0]))
+            for part in out.view(-1, *shape):
+                v = torch.randn(shape, generator=generator,
+                                dtype=torch.float32, device=device)
+                part.copy_(v.mul_(scale))
+    if _AXES_TABLES:
+        if len(axes) != len(shape):
+            raise ValueError(f"make_param: axes {axes} for shape {shape}")
+        _AXES_TABLES[-1][id(out)] = ("layers",) * len(lead) + tuple(axes)
     return out
 
 
@@ -75,13 +113,13 @@ def init_norm(generator, d: int, kind: str, dtype=torch.bfloat16, *,
     if kind == "nonparametric_ln":
         return {}
     if kind == "rmsnorm":
-        return {"scale": make_param(generator, lead + (d,), ones=True,
-                                    dtype=dtype, device=device)}
+        return {"scale": make_param(generator, (d,), ("embed",), ones=True,
+                                    dtype=dtype, device=device, lead=lead)}
     if kind == "layernorm":
-        return {"scale": make_param(generator, lead + (d,), ones=True,
-                                    dtype=dtype, device=device),
-                "bias": make_param(generator, lead + (d,), zeros=True,
-                                   dtype=dtype, device=device)}
+        return {"scale": make_param(generator, (d,), ("embed",), ones=True,
+                                    dtype=dtype, device=device, lead=lead),
+                "bias": make_param(generator, (d,), ("embed",), zeros=True,
+                                   dtype=dtype, device=device, lead=lead)}
     raise ValueError(f"unknown norm kind {kind}")
 
 
@@ -238,20 +276,20 @@ def train_attention(q, k, v, cfg, *, causal: bool,
 def init_attention(generator, cfg, *, lead: tuple = (), device=None) -> Params:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
-    def mk(shape, **kw):
-        return make_param(generator, shape, lead=lead, dtype=cfg.dtype,
+    def mk(shape, axes, **kw):
+        return make_param(generator, shape, axes, lead=lead, dtype=cfg.dtype,
                           device=device, **kw)
 
     p = {
-        "wq": mk((d, h, hd), fan_in=d),
-        "wk": mk((d, kv, hd), fan_in=d),
-        "wv": mk((d, kv, hd), fan_in=d),
-        "wo": mk((h, hd, d), fan_in=h * hd),
+        "wq": mk((d, h, hd), ("embed", "heads", "head_dim"), fan_in=d),
+        "wk": mk((d, kv, hd), ("embed", "kv_heads", "head_dim"), fan_in=d),
+        "wv": mk((d, kv, hd), ("embed", "kv_heads", "head_dim"), fan_in=d),
+        "wo": mk((h, hd, d), ("heads", "head_dim", "embed"), fan_in=h * hd),
     }
     if cfg.qkv_bias:
-        p["bq"] = mk((h, hd), zeros=True)
-        p["bk"] = mk((kv, hd), zeros=True)
-        p["bv"] = mk((kv, hd), zeros=True)
+        p["bq"] = mk((h, hd), ("heads", "head_dim"), zeros=True)
+        p["bk"] = mk((kv, hd), ("kv_heads", "head_dim"), zeros=True)
+        p["bv"] = mk((kv, hd), ("kv_heads", "head_dim"), zeros=True)
     if cfg.qk_norm:
         p["q_norm"] = init_norm(generator, hd, "rmsnorm", cfg.dtype,
                                 lead=lead, device=device)
@@ -318,13 +356,15 @@ def init_mlp(generator, cfg, d_ff: Optional[int] = None, *, lead: tuple = (),
              device=None) -> Params:
     d, f = cfg.d_model, d_ff or cfg.d_ff
 
-    def mk(shape, fan_in):
-        return make_param(generator, shape, lead=lead, fan_in=fan_in,
+    def mk(shape, axes, fan_in):
+        return make_param(generator, shape, axes, lead=lead, fan_in=fan_in,
                           dtype=cfg.dtype, device=device)
 
+    up, down = ("embed", "mlp"), ("mlp", "embed")
     if cfg.mlp_kind == "swiglu":
-        return {"wi": mk((d, f), d), "wg": mk((d, f), d), "wo": mk((f, d), f)}
-    return {"wi": mk((d, f), d), "wo": mk((f, d), f)}
+        return {"wi": mk((d, f), up, d), "wg": mk((d, f), up, d),
+                "wo": mk((f, d), down, f)}
+    return {"wi": mk((d, f), up, d), "wo": mk((f, d), down, f)}
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -373,18 +413,18 @@ def init_mla(generator, cfg, *, lead: tuple = (), device=None) -> Params:
     dc, dr = cfg.kv_lora_rank, cfg.rope_head_dim
     dn, dv = cfg.nope_head_dim, cfg.v_head_dim
 
-    def mk(shape, fan_in):
-        return make_param(generator, shape, lead=lead, fan_in=fan_in,
+    def mk(shape, axes, fan_in):
+        return make_param(generator, shape, axes, lead=lead, fan_in=fan_in,
                           dtype=cfg.dtype, device=device)
 
     return {
-        "wq": mk((d, h, dn + dr), d),
-        "wdkv": mk((d, dc + dr), d),
+        "wq": mk((d, h, dn + dr), ("embed", "heads", "head_dim"), d),
+        "wdkv": mk((d, dc + dr), ("embed", "kv_lora"), d),
         "kv_norm": init_norm(generator, dc, "rmsnorm", cfg.dtype, lead=lead,
                              device=device),
-        "wuk": mk((dc, h, dn), dc),
-        "wuv": mk((dc, h, dv), dc),
-        "wo": mk((h, dv, d), h * dv),
+        "wuk": mk((dc, h, dn), ("kv_lora", "heads", "head_dim"), dc),
+        "wuv": mk((dc, h, dv), ("kv_lora", "heads", "head_dim"), dc),
+        "wo": mk((h, dv, d), ("heads", "head_dim", "embed"), h * dv),
     }
 
 
@@ -439,41 +479,91 @@ def mla_decode(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     positions ``0 .. cache_index[i]``.  The products take bf16 operands
     with f32 sums: the operands are widened to f32, whose products of bf16
     values are exact, as the reference computes them off the TPU."""
-    b = x.shape[0]
     dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
     q_nope, q_pe, c, k_pe = mla_latents(p, x, cfg, positions)
-    cc, ck = cache["c"], cache["k_pe"]
-    rows, idx = slots.to(torch.int64), cache_index.to(torch.int64)
-    cc[rows, idx] = c[:, 0].to(cc.dtype)
-    ck[rows, idx] = k_pe[:, 0].to(ck.dtype)
-    lat, rope_k = cc[rows].float(), ck[rows].float()     # (b, T, dc), (b, T, dr)
-    scale = 1.0 / math.sqrt(dn + dr)
     q_c = torch.einsum("bshn,chn->bshc", q_nope, p["wuk"])
-    logits = (torch.einsum("bshc,btc->bhst", q_c.float(), lat)
-              + torch.einsum("bshr,btr->bhst", q_pe.float(), rope_k)) * scale
-    tpos = torch.arange(cc.shape[1], device=x.device)
-    mask = tpos[None, :] <= idx[:, None]                 # (b, T)
-    logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    o_c = torch.einsum("bhst,btc->bshc", probs, lat)
+    core = functools.partial(_mla_core, scale=1.0 / math.sqrt(dn + dr))
+    o_c = cache_step(core, (q_c, q_pe, c, k_pe), cache, cache_index, slots)
     out = torch.einsum("bshc,chv->bshv", o_c, p["wuv"].float()).to(x.dtype)
     return torch.einsum("bshv,hvd->bsd", out, p["wo"])
 
 
+def _mla_core(q_c, q_pe, c, k_pe, cache, cache_index, rows, *, scale):
+    """MLA decode's cache write and absorbed attention over rows ``rows``:
+    returns the latent output o_c (b, 1, h, dc) in f32."""
+    cc, ck = cache["c"], cache["k_pe"]
+    rows, idx = rows.to(torch.int64), cache_index.to(torch.int64)
+    cc[rows, idx] = c[:, 0].to(cc.dtype)
+    ck[rows, idx] = k_pe[:, 0].to(ck.dtype)
+    lat, rope_k = cc[rows].float(), ck[rows].float()     # (b, T, dc), (b, T, dr)
+    logits = (torch.einsum("bshc,btc->bhst", q_c.float(), lat)
+              + torch.einsum("bshr,btr->bhst", q_pe.float(), rope_k)) * scale
+    tpos = torch.arange(cc.shape[1], device=q_c.device)
+    mask = tpos[None, :] <= idx[:, None]                 # (b, T)
+    logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,btc->bshc", probs, lat)
+
+
+def cache_step(core, tokens: tuple, cache: dict, cache_index, slots):
+    """``core(*tokens, cache, cache_index, rows)``: one decode step's cache
+    write and attention.
+
+    ``slots`` None is the dry run's whole-batch step on meta DTensor
+    caches, sharded on batch and on the sequence ("model"): it runs
+    context-parallel, ``core`` on each rank's local shards, the step's
+    tokens gathered to every head of the rank's batch rows (that
+    collective is counted) over the rank's sequence shard of the cache;
+    the ranks' outputs are partial sums over the model axis (``Partial``),
+    reduced back to the tokens' placements (the merge stands in for a
+    log-sum-exp combine of the same size).  The local token shards are
+    built from the cache's row count: meta carries shapes only, and this
+    holds whatever local shapes a torch version's redistribution gives
+    (torch 2.11's differed from 2.13's on the multi-pod mesh)."""
+    if slots is not None:
+        return core(*tokens, cache, cache_index, slots)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    names = list(cache)
+    leaves = [cache[n] for n in names]
+    mesh = leaves[0].device_mesh
+    if leaves[0].to_local().device.type != "meta":
+        raise NotImplementedError(
+            "a whole-batch decode step on DTensor caches is the dry run's "
+            "shape analysis (meta); give the rows' slots")
+    cache_pl = leaves[0].placements
+    row = [Shard(0) if pl == Shard(0) else Replicate() for pl in cache_pl]
+    out = [Partial() if pl == Shard(1) else r for pl, r in zip(cache_pl, row)]
+    b_loc = leaves[0].to_local().shape[0]
+    local = []
+    for t in (cache_index, *tokens):
+        t = t.redistribute(mesh, row)
+        local.append(torch.empty((b_loc,) + tuple(t.shape[1:]),
+                                 dtype=t.dtype, device="meta"))
+    idx, *toks = local
+    y = core(*toks, {n: t.to_local() for n, t in zip(names, leaves)}, idx,
+             torch.arange(b_loc, device="meta"))
+    y = DTensor.from_local(y, mesh, out, run_check=False)
+    back = [Replicate() if pl.is_partial() else pl
+            for pl in tokens[0].placements]
+    return y.redistribute(mesh, back)
+
+
 # ---------------------------------------------------------------------------------
-# MoE: shared + routed top-k experts, capacity-based dispatch (one device)
+# MoE: shared + routed top-k experts, capacity-based dispatch (one device,
+# or expert-parallel over a mesh)
 # ---------------------------------------------------------------------------------
 
 def init_moe(generator, cfg, *, lead: tuple = (), device=None) -> Params:
     d, f, e = cfg.d_model, cfg.d_expert, cfg.n_routed_experts
 
-    def mk(shape, fan_in, dtype=cfg.dtype):
-        return make_param(generator, shape, lead=lead, fan_in=fan_in,
+    def mk(shape, axes, fan_in, dtype=cfg.dtype):
+        return make_param(generator, shape, axes, lead=lead, fan_in=fan_in,
                           dtype=dtype, device=device)
 
-    p = {"router": mk((d, e), d, torch.float32),
-         "wi": mk((e, d, f), d), "wg": mk((e, d, f), d),
-         "wo": mk((e, f, d), f)}
+    up = ("expert", "embed", "mlp")
+    p = {"router": mk((d, e), ("embed", "expert"), d, torch.float32),
+         "wi": mk((e, d, f), up, d), "wg": mk((e, d, f), up, d),
+         "wo": mk((e, f, d), ("expert", "mlp", "embed"), f)}
     if cfg.n_shared_experts:
         p["shared"] = init_mlp(generator, cfg,
                                d_ff=cfg.d_expert * cfg.n_shared_experts,
@@ -492,33 +582,51 @@ def moe_capacity(t: int, cfg, *, capacity_factor: float,
     return int(max(k, math.ceil(t * k / e * capacity_factor)))
 
 
-def moe_dispatch(idx: torch.Tensor, n_experts: int, capacity: int):
+def moe_dispatch(idx: torch.Tensor, n_experts: int, capacity: int,
+                 local: Optional[torch.Tensor] = None):
     """Slots of the flattened (t, k) assignments: each assignment's place
     in its expert's queue (cumsum in assignment order), kept below
     ``capacity``; a dropped one goes to the waste slot ``capacity``.
-    Returns (flat expert ids, slots, kept), each (t*k,)."""
+    ``local`` (t, k) marks the assignments to experts this rank owns
+    (expert parallel; ``idx`` then holds local ids); the others take no
+    slot and are not kept.  Returns (flat expert ids, slots, kept), each
+    (t*k,)."""
     flat = idx.reshape(-1)
     onehot = F.one_hot(flat, n_experts).to(torch.int32)
+    if local is not None:
+        onehot = onehot * local.reshape(-1, 1)
     pos = torch.cumsum(onehot, dim=0) - 1
     pos = torch.gather(pos, 1, flat[:, None])[:, 0]
     keep = pos < capacity
+    if local is not None:
+        keep = keep & local.reshape(-1)
     slot = torch.where(keep, pos, torch.full_like(pos, capacity))
     return flat, slot.to(torch.int64), keep
 
 
 def moe_expert_compute(x, idx, gates, wi, wg, wo, *, capacity: int,
-                       dtype) -> torch.Tensor:
-    """Routed experts on one device.  x: (t, d); idx/gates: (t, k).
+                       dtype, e_offset: int = 0,
+                       e_total: Optional[int] = None) -> torch.Tensor:
+    """Routed experts ``e_offset .. e_offset + e_loc - 1`` (``wi``'s
+    leading dim, of ``e_total``; default all of them) on one device.
+    x: (t, d); idx/gates: (t, k) global expert ids.
 
-    The kept assignments scatter into an (e, capacity + 1, d) buffer whose
-    last slot absorbs the dropped ones (as zeros) and is discarded; each
-    expert runs its SwiGLU over its ``capacity`` slots as a batched matmul
-    (every expert's weights are read, as the reference's dense dispatch
-    reads them), and the outputs gather back weighted by the gates.
-    Returns y (t, d) in f32."""
+    The kept assignments scatter into an (e_loc, capacity + 1, d) buffer
+    whose last slot absorbs the dropped ones (as zeros) and is discarded;
+    each expert runs its SwiGLU over its ``capacity`` slots as a batched
+    matmul (every expert's weights are read, as the reference's dense
+    dispatch reads them), and the outputs gather back weighted by the
+    gates.  Assignments to other ranks' experts contribute nothing here
+    (expert parallel: the caller sums the ranks' outputs).  Returns y
+    (t, d) in f32."""
     t, d = x.shape
     e, k = wi.shape[0], idx.shape[-1]
-    flat, slot, keep = moe_dispatch(idx, e, capacity)
+    local = None
+    if e_total is not None and e != e_total:
+        local = (idx >= e_offset) & (idx < e_offset + e)
+        idx = torch.where(local, idx - e_offset, torch.zeros_like(idx))
+    flat, slot, keep = (moe_dispatch(idx, e, capacity) if local is None
+                        else moe_dispatch(idx, e, capacity, local))
     if x.device.type == "cpu":
         # an accumulating scatter is deterministic on the card only if no
         # two kept assignments share a slot: duplicates are the waste
@@ -550,27 +658,164 @@ def moe_route(p: Params, x: torch.Tensor, cfg):
     return probs, gates, idx
 
 
+#: expert-parallel execution context, installed by the launcher alongside
+#: the activation resolver: (mesh, data_axes, model_axis) or None for local
+#: runs
+_MOE_CONTEXT: dict = {"mesh": None, "data_axes": (), "model_axis": None}
+
+
+def set_moe_mesh(mesh, data_axes: tuple, model_axis: Optional[str]) -> None:
+    """Run MoE expert-parallel over ``mesh``'s ``model_axis`` (None:
+    every expert on one device)."""
+    _MOE_CONTEXT.update(mesh=mesh, data_axes=tuple(data_axes),
+                        model_axis=model_axis)
+
+
+def _ep_degree(e: int) -> int:
+    """Ranks the experts spread over (0: no expert parallelism)."""
+    mesh, axis = _MOE_CONTEXT["mesh"], _MOE_CONTEXT["model_axis"]
+    if mesh is None or axis is None:
+        return 0
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    return n if e % n == 0 else 0
+
+
 def moe_block(p: Params, x: torch.Tensor, cfg, *,
               capacity_factor: float = 1.25,
               no_drop: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed + shared experts.  Returns (y, aux): aux the
     Switch-style load-balancing loss.  ``no_drop``: capacity is every
-    token, so decode routes exactly."""
+    token, so decode routes exactly.
+
+    Expert parallel (``set_moe_mesh``, the experts divide the model axis):
+    a ``local_map`` over the mesh, the reference's ``shard_map``.  The
+    expert weights are ``Shard(0)`` on the model axis and the tokens
+    sharded on the data axes; each rank scatters its tokens' assignments
+    to its ``e_loc`` experts (``e_offset = rank * e_loc``) into a local
+    capacity buffer, computes them, and the ranks' partial outputs are
+    summed by an all-reduce over the model axis (``Partial`` ->
+    ``Replicate``), the reference's ``lax.psum``.  The capacity comes from
+    the tokens of one data shard, as the reference's does."""
     g, s, d = x.shape
     e, k = cfg.n_routed_experts, cfg.moe_top_k
     probs, gates, idx = moe_route(p, x, cfg)
     me = probs.mean(dim=(0, 1))
-    ce = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
-        0, idx.reshape(-1), torch.ones(idx.numel(), device=x.device)
+    ce = probs.new_zeros(e).index_add_(
+        0, idx.reshape(-1), torch.ones_like(idx.reshape(-1), dtype=F32)
     ) / (g * s * k)
     aux = e * torch.sum(me * ce)
-    t = g * s
-    capacity = moe_capacity(t, cfg, capacity_factor=capacity_factor,
-                            no_drop=no_drop)
-    y = moe_expert_compute(x.reshape(t, d), idx.reshape(t, k),
-                           gates.reshape(t, k), p["wi"], p["wg"], p["wo"],
-                           capacity=capacity, dtype=cfg.dtype)
+    n_model = _ep_degree(e)
+    if not n_model:
+        t = g * s
+        capacity = moe_capacity(t, cfg, capacity_factor=capacity_factor,
+                                no_drop=no_drop)
+        y = moe_expert_compute(x.reshape(t, d), idx.reshape(t, k),
+                               gates.reshape(t, k), p["wi"], p["wg"],
+                               p["wo"], capacity=capacity, dtype=cfg.dtype)
+    else:
+        y = _moe_expert_parallel(p, x, idx, gates, cfg, n_model,
+                                 capacity_factor=capacity_factor,
+                                 no_drop=no_drop)
     y = y.to(x.dtype).reshape(g, s, d)
     if cfg.n_shared_experts:
         y = y + mlp_block(p["shared"], x, cfg)
     return y, aux
+
+
+def _moe_expert_parallel(p: Params, x, idx, gates, cfg, n_model: int, *,
+                         capacity_factor: float, no_drop: bool):
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = _MOE_CONTEXT["mesh"]
+    model_axis = _MOE_CONTEXT["model_axis"]
+    data_axes = _MOE_CONTEXT["data_axes"]
+    names = mesh.mesh_dim_names
+    g, s, d = x.shape
+    e, k = cfg.n_routed_experts, cfg.moe_top_k
+    n_data = math.prod(mesh.size(names.index(a)) for a in data_axes)
+    g_loc = max(1, g // n_data) if g % n_data == 0 else g
+    capacity = moe_capacity(g_loc * s, cfg, capacity_factor=capacity_factor,
+                            no_drop=no_drop)
+    e_loc = e // n_model
+    e_offset = mesh.get_local_rank(model_axis) * e_loc
+    shard_batch = g % n_data == 0
+    tok = tuple(Shard(0) if (a in data_axes and shard_batch) else Replicate()
+                for a in names)
+    part = tuple(Partial() if a == model_axis else pl
+                 for a, pl in zip(names, tok))
+    wpl = tuple(Shard(0) if a == model_axis else Replicate() for a in names)
+
+    def body(x_blk, idx_blk, gates_blk, wi_l, wg_l, wo_l):
+        gb = x_blk.shape[0]
+        y_loc = moe_expert_compute(
+            x_blk.reshape(gb * s, d), idx_blk.reshape(gb * s, k),
+            gates_blk.reshape(gb * s, k), wi_l, wg_l, wo_l,
+            capacity=capacity, dtype=cfg.dtype, e_offset=e_offset,
+            e_total=e)
+        return y_loc.reshape(gb, s, d)
+
+    args = [t if isinstance(t, DTensor)
+            else DTensor.from_local(t, mesh, tok, run_check=False)
+            for t in (x, idx, gates)]
+    y = local_map(body, out_placements=list(part),
+                  in_placements=(tok, tok, tok, wpl, wpl, wpl),
+                  device_mesh=mesh, redistribute_inputs=True)(
+        *args, p["wi"], p["wg"], p["wo"])
+    return y.redistribute(mesh, tok)                 # EP combine: all-reduce
+
+
+# ---------------------------------------------------------------------------------
+# Sharding hint plumbing (resolved by shardings.py when a mesh is active)
+# ---------------------------------------------------------------------------------
+
+_ACTIVATION_RULES: dict[str, Any] = {"resolver": None}
+
+
+def set_activation_resolver(fn) -> None:
+    """Install a fn(logical_axes, shape) -> (mesh, placements) or None
+    (``ShardingRules.resolver``); None uninstalls it."""
+    _ACTIVATION_RULES["resolver"] = fn
+
+
+def gather_for_use(params):
+    """FSDP's gather-on-use (the reference's ZeRO-3 layout, "embed" ->
+    "data"): with a resolver installed, every DTensor parameter sharded on
+    a data axis ("pod", "data") is all-gathered there before the step
+    uses it, so its products shard the batch, not the contraction; in a
+    train step autograd returns its gradient by reduce-scatter.  The tree
+    itself is returned with no resolver, as on the serving and training
+    paths."""
+    if _ACTIVATION_RULES["resolver"] is None:
+        return params
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def one(t):
+        if not isinstance(t, DTensor):
+            return t
+        names = t.device_mesh.mesh_dim_names
+        pl = tuple(Replicate() if n in ("pod", "data") and p.is_shard()
+                   else p for n, p in zip(names, t.placements))
+        return t if pl == tuple(t.placements) else t.redistribute(
+            t.device_mesh, pl)
+    from repro_torch.training.optimizer import tree_map
+    return tree_map(one, params)
+
+
+def shard_hint(x: torch.Tensor, logical: tuple) -> torch.Tensor:
+    """``x`` redistributed to the placements the resolver gives its
+    logical axes (the reference's ``with_sharding_constraint``).  The
+    identity with no resolver, for a plain tensor, or where the resolver
+    gives none."""
+    resolver = _ACTIVATION_RULES["resolver"]
+    if resolver is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    got = resolver(logical, tuple(x.shape))
+    if got is None:
+        return x
+    mesh, pl = got
+    if tuple(x.placements) == tuple(pl):
+        return x
+    return x.redistribute(mesh, pl)

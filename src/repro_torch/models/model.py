@@ -36,7 +36,11 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 
-from .layers import Params, apply_norm, init_norm, make_param
+from repro_torch.kernels import note_loop
+from repro_torch.training.optimizer import tree_map
+
+from .layers import (Params, apply_norm, gather_for_use, init_norm,
+                     make_param, record_axes, shard_hint)
 from .transformer import (block_apply, check_supported, encoder_config,
                           first_stacked_layer, init_attention_caches,
                           init_block, init_blocks, init_layer_states,
@@ -56,15 +60,15 @@ def init_params(cfg, generator: torch.Generator, *, device=None) -> dict:
     check_supported(cfg)
     params: dict = {
         "embed": make_param(generator, (cfg.vocab_size, cfg.d_model),
-                            fan_in=cfg.d_model, dtype=cfg.dtype,
-                            device=device),
+                            ("vocab", "embed"), fan_in=cfg.d_model,
+                            dtype=cfg.dtype, device=device),
         "final_norm": init_norm(generator, cfg.d_model, cfg.norm_kind,
                                 cfg.dtype, device=device),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = make_param(generator, (cfg.d_model, cfg.vocab_size),
-                                       fan_in=cfg.d_model, dtype=cfg.dtype,
-                                       device=device)
+                                       ("embed", "vocab"), fan_in=cfg.d_model,
+                                       dtype=cfg.dtype, device=device)
     if first_stacked_layer(cfg):
         params["block0"] = init_block(generator, cfg, 0,
                                       cross_attention=cfg.encoder_layers > 0,
@@ -84,6 +88,21 @@ def init_params(cfg, generator: torch.Generator, *, device=None) -> dict:
     return params
 
 
+def abstract_params(cfg) -> tuple[dict, dict]:
+    """The parameter tree on ``device="meta"`` (shapes and dtypes; nothing
+    allocated, nothing drawn), and the tree of each leaf's logical axes
+    (the reference's ``Param.axes``), shaped like it."""
+    with record_axes() as table:
+        params = init_params(cfg, None, device="meta")
+    return params, tree_map(lambda t: table[id(t)], params)
+
+
+def param_axes(cfg) -> dict:
+    """The logical axes of every parameter, in a tree shaped like
+    ``init_params``'s (keyed as the checkpoint's leaves are)."""
+    return abstract_params(cfg)[1]
+
+
 # ---------------------------------------------------------------------------------
 # Shared trunk
 # ---------------------------------------------------------------------------------
@@ -96,10 +115,13 @@ def _stack(trees: list):
 
 
 def _layers(blocks, n: int):
-    """Each layer's parameters: views into a stacked tree, or the list's."""
-    if isinstance(blocks, list):
-        return blocks
-    return [layer_params(blocks, i) for i in range(n)]
+    """Each layer's parameters: views into a stacked tree, or the list's.
+    Tells a listening cost counter the loop's passes (its
+    ``trip_counts``)."""
+    layers = (blocks if isinstance(blocks, list)
+              else [layer_params(blocks, i) for i in range(n)])
+    note_loop("blocks", len(layers))
+    return layers
 
 
 def _xlstm_trunk(params, cfg, x, *, mode, caches, slots):
@@ -111,7 +133,7 @@ def _xlstm_trunk(params, cfg, x, *, mode, caches, slots):
               else [None] * cfg.n_layers)
     compiled = mode in ("decode", "train")
     resid, new_layers = None, []
-    for i, p in enumerate(params["blocks"]):
+    for i, p in enumerate(_layers(params["blocks"], cfg.n_layers)):
         x, resid, nc = xlstm_block_apply(
             p, x, cfg, i, mode=mode, cache=layers[i], slots=slots,
             norm_in=resid if compiled else None)
@@ -157,7 +179,7 @@ def _trunk(params, cfg, x, *, mode, positions, caches=None, cache_index=None,
         # stack feed each norm the f32 residual sum before its bf16
         # rounding, as in the xLSTM stack; its eager prefill rounds
         resid, layers = None, []
-        for i, p in enumerate(blocks):
+        for i, p in enumerate(_layers(blocks, len(blocks))):
             x, resid, out = block_apply(
                 p, x, cfg, start + i,
                 cache=caches["blocks"][i] if decode else None, fused=compiled,
@@ -222,7 +244,7 @@ def _assemble_inputs(params, cfg, tokens: torch.Tensor, *, frames=None,
     a vlm's patch embeddings go before the token embeddings (positions run
     over both), an encoder-decoder's frames through the encoder."""
     b = tokens.shape[0]
-    x = params["embed"][tokens]
+    x = _embed_tokens(params, tokens)
     enc_out, prefix = None, 0
     if cfg.family == "vlm" and patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
@@ -237,9 +259,19 @@ def _assemble_inputs(params, cfg, tokens: torch.Tensor, *, frames=None,
     return x, _positions(b, x.shape[1], x.device), enc_out, prefix
 
 
+def _embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
+    return shard_hint(params["embed"][tokens], ("batch", "seq", "embed"))
+
+
 def _logits(params, cfg, x):
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return torch.einsum("bsd,dv->bsv", x, w).to(cfg.logits_dtype)
+    logits = torch.einsum("bsd,dv->bsv", x, w).to(cfg.logits_dtype)
+    return shard_hint(logits, ("batch", "seq", "vocab"))
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -253,6 +285,7 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 def forward(params, cfg, batch: dict):
     """Training forward.  Returns (logits over the token positions in
     ``cfg.logits_dtype``, the MoE aux loss in f32)."""
+    params = gather_for_use(params)
     x, positions, enc_out, prefix = _assemble_inputs(
         params, cfg, batch["tokens"], frames=batch.get("frames"),
         patch_embeds=batch.get("patch_embeds"), train=True)
@@ -314,6 +347,7 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
     ``patch_embeds`` (B, P, D) go before the tokens and into the cache.
 
     Returns (last_position_logits, caches, next_index)."""
+    params = gather_for_use(params)
     x, positions, enc_out, _ = _assemble_inputs(
         params, cfg, tokens, frames=frames, patch_embeds=patch_embeds)
     total = x.shape[1]
@@ -328,16 +362,19 @@ def decode_step(params, cfg, caches, tokens: torch.Tensor,
                 max_len: int = 0):
     """One decode step, in place.  tokens: (B,1); index: (B,) current
     lengths; slots: (B,) distinct cache rows the tokens belong to
-    (default: rows 0..B-1, a cache of exactly B rows); max_len: the
+    (default: rows 0..B-1, a cache of exactly B rows; for DTensor inputs,
+    the dry run's, every row of each rank's shard, ``layers.cache_step``);
+    max_len: the
     length the caller retires a row at (the serving engine's), which lets
     a sliding layer whose cache holds every position use the paged kernel
     (0: unknown, every window layer decodes through its ring).  An
     encoder-decoder's cross attention reads the rows' cross K/V."""
+    params = gather_for_use(params)
     b = tokens.shape[0]
     index = index.reshape(-1).expand(b) if index.numel() == 1 else index
-    if slots is None:
+    if slots is None and not _is_dtensor(tokens):
         slots = torch.arange(b, device=tokens.device)
-    x = params["embed"][tokens]
+    x = _embed_tokens(params, tokens)
     x, caches, _ = _trunk(params, cfg, x, mode="decode",
                           positions=index[:, None], caches=caches,
                           cache_index=index, slots=slots, max_len=max_len)

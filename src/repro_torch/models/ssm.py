@@ -28,10 +28,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import repeated
 from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
 from repro_torch.kernels.mlstm_scan.ref import mlstm_chunked_ref
 
-from .layers import Params, apply_norm, init_norm, make_param, silu
+from .layers import (Params, apply_norm, init_norm, make_param, shard_hint,
+                     silu)
 
 F32 = torch.float32
 #: the reference's mLSTM prefill chunk (``mlstm_chunked(chunk=256)``)
@@ -54,21 +56,22 @@ def init_mlstm(generator, cfg, *, device=None) -> Params:
     d = cfg.d_model
     inner, h, dk, dh = mlstm_dims(cfg)
 
-    def mk(shape, fan_in, dtype=cfg.dtype, **kw):
-        return make_param(generator, shape, fan_in=fan_in, dtype=dtype,
+    def mk(shape, axes, fan_in, dtype=cfg.dtype, **kw):
+        return make_param(generator, shape, axes, fan_in=fan_in, dtype=dtype,
                           device=device, **kw)
 
+    qkv = ("mlp", "heads", "head_dim")
     return {
-        "w_up": mk((d, 2 * inner), d),
-        "wq": mk((inner, h, dk), inner),
-        "wk": mk((inner, h, dk), inner),
-        "wv": mk((inner, h, dh), inner),
-        "wi": mk((inner, h), inner, F32),
-        "wf": mk((inner, h), inner, F32),
-        "bf": mk((h,), None, F32, ones=True),
+        "w_up": mk((d, 2 * inner), ("embed", "mlp"), d),
+        "wq": mk((inner, h, dk), qkv, inner),
+        "wk": mk((inner, h, dk), qkv, inner),
+        "wv": mk((inner, h, dh), qkv, inner),
+        "wi": mk((inner, h), ("mlp", "heads"), inner, F32),
+        "wf": mk((inner, h), ("mlp", "heads"), inner, F32),
+        "bf": mk((h,), ("heads",), None, F32, ones=True),
         "out_norm": init_norm(generator, inner, "rmsnorm", cfg.dtype,
                               device=device),
-        "w_down": mk((inner, d), inner),
+        "w_down": mk((inner, d), ("mlp", "embed"), inner),
     }
 
 
@@ -105,6 +108,12 @@ def mlstm_chunked(p: Params, x: torch.Tensor, cfg, *,
     u, z = up[..., :inner], up[..., inner:]
     q, k, v, log_i, log_f = _mlstm_gates(p, u)
     scale = 1.0 / math.sqrt(dk)
+    # the scan's inputs placed by their logical axes (identity off a mesh):
+    # left to DTensor, the chunked scan's reshapes would split batch x
+    # heads over every rank, unevenly on the multi-pod mesh
+    heads = ("batch", "seq", "heads", "head_dim")
+    q, k, v = (shard_hint(t, heads) for t in (q, k, v))
+    log_i, log_f = (shard_hint(t, heads[:3]) for t in (log_i, log_f))
     qc = (q.float() * scale).contiguous()
     kc, vc = k.float().contiguous(), v.float().contiguous()
     init = None if state is None else (state["C"], state["n"], state["m"])
@@ -158,17 +167,17 @@ def init_slstm(generator, cfg, *, device=None) -> Params:
     d = cfg.d_model
     inner = cfg.ssm_expand * d
 
-    def mk(shape, fan_in, dtype=F32, **kw):
-        return make_param(generator, shape, fan_in=fan_in, dtype=dtype,
+    def mk(shape, axes, fan_in, dtype=F32, **kw):
+        return make_param(generator, shape, axes, fan_in=fan_in, dtype=dtype,
                           device=device, **kw)
 
-    return {"w_in": mk((d, 4 * inner), d),
-            "r": mk((inner, 4), 1),
-            "b": mk((4 * inner,), None, zeros=True),
+    return {"w_in": mk((d, 4 * inner), ("embed", "mlp"), d),
+            "r": mk((inner, 4), ("mlp", None), 1),
+            "b": mk((4 * inner,), ("mlp",), None, zeros=True),
             "out_norm": init_norm(generator, inner, "rmsnorm", cfg.dtype,
                                   device=device),
-            "w_down": mk((inner, d), inner, cfg.dtype),
-            "w_z": mk((d, inner), d, cfg.dtype)}
+            "w_down": mk((inner, d), ("mlp", "embed"), inner, cfg.dtype),
+            "w_z": mk((d, inner), ("embed", "mlp"), d, cfg.dtype)}
 
 
 def _slstm_cell(p, xt, state):
@@ -207,7 +216,13 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg,
     else:
         st = (state["c"], state["n"], state["h"], state["m"])
     hs = []
-    for t in range(s):
+    if x.device.type == "meta" and s > 1:
+        # shape analysis (the dry run): one step stands for all s, counted
+        # s times (its backward, elementwise only, once)
+        with repeated(s):
+            st = _slstm_cell(p, pre[:, 0], st)
+        hs = [st[2]] * s
+    for t in range(len(hs), s):
         st = _slstm_cell(p, pre[:, t], st)
         hs.append(st[2])
     y = torch.stack(hs, dim=1).to(x.dtype)                 # (b,s,inner)
@@ -248,19 +263,19 @@ def init_mamba(generator, cfg, *, lead: tuple = (), device=None) -> Params:
     d = cfg.d_model
     e, h, dh, n = mamba_dims(cfg)
 
-    def mk(shape, fan_in, dtype=cfg.dtype, **kw):
-        return make_param(generator, shape, fan_in=fan_in, dtype=dtype,
+    def mk(shape, axes, fan_in, dtype=cfg.dtype, **kw):
+        return make_param(generator, shape, axes, fan_in=fan_in, dtype=dtype,
                           device=device, lead=lead, **kw)
 
     return {
-        "w_in": mk((d, 2 * e), d),
-        "conv": mk((cfg.conv_width, e), cfg.conv_width),
-        "wB": mk((e, h, n), e),
-        "wC": mk((e, h, n), e),
-        "w_dt": mk((e, h), e, F32),
-        "a_log": mk((h,), None, F32, ones=True),
-        "d_skip": mk((h,), None, F32, ones=True),
-        "w_down": mk((e, d), e),
+        "w_in": mk((d, 2 * e), ("embed", "mlp"), d),
+        "conv": mk((cfg.conv_width, e), (None, "mlp"), cfg.conv_width),
+        "wB": mk((e, h, n), ("mlp", "heads", None), e),
+        "wC": mk((e, h, n), ("mlp", "heads", None), e),
+        "w_dt": mk((e, h), ("mlp", "heads"), e, F32),
+        "a_log": mk((h,), ("heads",), None, F32, ones=True),
+        "d_skip": mk((h,), ("heads",), None, F32, ones=True),
+        "w_down": mk((e, d), ("mlp", "embed"), e),
     }
 
 
@@ -309,6 +324,11 @@ def mamba_chunked(p: Params, x: torch.Tensor, cfg, *,
     e, h, dh, n = mamba_dims(cfg)
     conv_state = state["conv"] if state is not None else None
     uh, z, B_, C_, dt, new_conv = _mamba_proj(p, x, cfg, conv_state)
+    # the scan's inputs placed by their logical axes (identity off a mesh),
+    # as the mLSTM scan's are
+    heads = ("batch", "seq", "heads", "head_dim")
+    uh, B_, C_ = (shard_hint(t, heads) for t in (uh, B_, C_))
+    dt = shard_hint(dt, heads[:3])
     a = -torch.exp(p["a_log"])                           # (h,) negative rate
     la = dt * a                                          # (b,s,h) log decay
     xbar = uh.float() * dt[..., None]                    # dt-weighted input

@@ -51,8 +51,8 @@ from repro_torch.kernels.paged_attention import ops as pa_ops
 from . import ssm
 from .layers import (NEG_INF, Params, apply_norm, attention_block,
                      init_attention, init_mla, init_mlp, init_moe, init_norm,
-                     mla_block, mla_decode, mlp_block, moe_block,
-                     qkv_projections)
+                     cache_step, mla_block, mla_decode, mlp_block,
+                     moe_block, qkv_projections, shard_hint)
 
 #: tokens per KV page when a layer's resident cache is viewed as pages
 PAGE_SIZE = 16
@@ -272,6 +272,10 @@ def block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
         y = 0.5 * (apply_norm(p["attn_out_norm"], y, "rmsnorm")
                    + apply_norm(p["ssm_out_norm"], ys, "rmsnorm"))
 
+    # GSPMD reduces a row-parallel product's partial sums where a consumer
+    # needs them; DTensor would carry them into the residual sum and the
+    # norm, so each sublayer's output is hinted (identity off a mesh)
+    y = shard_hint(y, ("batch", "seq", "embed"))
     resid = x.float() + y.float()
     if "cross" in p:
         x = resid.to(x.dtype)
@@ -280,7 +284,7 @@ def block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
         yc = cross_attention(p["cross"], hc, cfg, mode=mode,
                              positions=positions, enc_out=enc_out,
                              cache=cache, slots=slots, new_cache=new_cache)
-        resid = x.float() + yc.float()
+        resid = x.float() + shard_hint(yc, ("batch", "seq", "embed")).float()
     if fused:
         h = apply_norm(p["mlp_norm"], resid, cfg.norm_kind).to(x.dtype)
         x = resid.to(x.dtype)
@@ -294,12 +298,14 @@ def block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
                            no_drop=(mode == "decode"))
     else:
         y = mlp_block(p["mlp"], h, cfg)
+    y = shard_hint(y, ("batch", "seq", "embed"))
     if mode == "train":
         new_cache = aux if aux is not None else x.new_zeros((), dtype=torch.float32)
     if not keep_f32:
-        return x + y, None, new_cache
+        return shard_hint(x + y, ("batch", "seq", "embed")), None, new_cache
     resid = x.float() + y.float()
-    return resid.to(x.dtype), resid, new_cache
+    return (shard_hint(resid.to(x.dtype), ("batch", "seq", "embed")), resid,
+            new_cache)
 
 
 def cross_attention(p: Params, hc: torch.Tensor, cfg, *, mode: str,
@@ -311,7 +317,9 @@ def cross_attention(p: Params, hc: torch.Tensor, cfg, *, mode: str,
     rows ``slots`` at decode; the attention is non-causal (train:
     ``layers.train_attention``; else the flash kernel, at decode with one
     query row)."""
-    if mode == "decode":
+    if mode == "decode" and slots is None:       # the whole batch
+        kv = (cache["cross_k"], cache["cross_v"])
+    elif mode == "decode":
         rows = slots.to(torch.int64)
         kv = (cache["cross_k"][rows], cache["cross_v"][rows])
     else:
@@ -351,7 +359,13 @@ def remat(fn, cfg):
 
 def _step_rows(step, p, h, cfg, state: dict, slots: torch.Tensor):
     """Step the recurrent state of rows ``slots`` and write it back in place
-    (slots must be distinct).  Returns the step's output."""
+    (slots must be distinct; None: every row, the dry run's whole-batch
+    step).  Returns the step's output."""
+    if slots is None:
+        y, new = step(p, h, cfg, dict(state))
+        for name, t in state.items():
+            t.copy_(new[name].to(t.dtype))
+        return y
     rows = slots.to(torch.int64)
     y, new = step(p, h, cfg, {k: t[rows] for k, t in state.items()})
     for name, t in state.items():
@@ -391,6 +405,9 @@ def xlstm_block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
     else:
         y, state = ssm.slstm_forward(p["mix"], h, cfg, state=None)
         new_cache = None if mode == "train" else {"ssm": state}
+    # the mixer's output reduced as an attention block's sublayers are
+    # (identity off a mesh)
+    y = shard_hint(y, ("batch", "seq", "embed"))
     resid = x.float() + y.float()
     return resid.to(x.dtype), resid, new_cache
 
@@ -506,12 +523,17 @@ def decode_attention(p, h, cfg, *, positions, cache, cache_index, slots):
     ``index - window < 0`` and the window cannot bite.  ``pos`` is kept up
     to date all the same, so cache contents compare with the reference's.
     """
-    b = h.shape[0]
     q, k, v = qkv_projections(p, h, cfg, positions)
+    out = cache_step(_paged_core, (q, k, v), cache, cache_index, slots)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _paged_core(q, k, v, cache, cache_index, rows):
+    b = q.shape[0]
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     n_slots, cap = ck.shape[0], ck.shape[1]
     idx = cache_index.to(torch.int64)
-    rows = slots.to(torch.int64)
+    rows = rows.to(torch.int64)
     ck[rows, idx] = k[:, 0].to(ck.dtype)
     cv[rows, idx] = v[:, 0].to(cv.dtype)
     cpos[rows, idx] = cache_index.to(cpos.dtype)
@@ -520,12 +542,11 @@ def decode_attention(p, h, cfg, *, positions, cache, cache_index, slots):
     kv_heads, hd = ck.shape[2], ck.shape[3]
     k_pages = ck.view(n_slots * cap // page, page, kv_heads, hd)
     v_pages = cv.view(n_slots * cap // page, page, kv_heads, hd)
-    tables = slot_block_tables(slots, cap, page)
+    tables = slot_block_tables(rows, cap, page)
     lengths = (cache_index.to(torch.int32) + 1)
     out = pa_ops.paged_attention(q[:, 0].contiguous(), k_pages, v_pages,
                                  tables, lengths)
-    return torch.einsum("bshk,hkd->bsd", out.view(b, 1, *out.shape[1:]),
-                        p["wo"])
+    return out.view(b, 1, *out.shape[1:])
 
 
 def ring_decode_attention(p, h, cfg, *, positions, cache, cache_index, slots,
@@ -536,29 +557,36 @@ def ring_decode_attention(p, h, cfg, *, positions, cache, cache_index, slots,
     ``slots[i]`` and attends over that row's keys whose ``pos`` is written,
     not in the future and inside the window.  The attention is the
     reference's jnp arithmetic (f32 products and softmax), not a kernel."""
-    b = h.shape[0]
     q, k, v = qkv_projections(p, h, cfg, positions)
+    core = functools.partial(_ring_core, window=window,
+                             n_rep=cfg.n_heads // cfg.n_kv_heads,
+                             head_dim=cfg.head_dim)
+    out = cache_step(core, (q, k, v), cache, cache_index, slots)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _ring_core(q, k, v, cache, cache_index, rows, *, window, n_rep,
+               head_dim):
+    b = q.shape[0]
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     cap = ck.shape[1]
     idx = cache_index.to(torch.int64)
-    rows = slots.to(torch.int64)
+    rows = rows.to(torch.int64)
     slot = idx % cap
     ck[rows, slot] = k[:, 0].to(ck.dtype)
     cv[rows, slot] = v[:, 0].to(cv.dtype)
     cpos[rows, slot] = cache_index.to(cpos.dtype)
 
-    n_rep = cfg.n_heads // cfg.n_kv_heads
     kk = ck[rows].float().repeat_interleave(n_rep, dim=2)
     vv = cv[rows].float().repeat_interleave(n_rep, dim=2)
-    scale = 1.0 / math.sqrt(cfg.head_dim)
+    scale = 1.0 / math.sqrt(head_dim)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * scale
     qp = idx.view(b, 1, 1, 1)
     kp = cpos[rows][:, None, None, :].to(torch.int64)
     mask = (kp >= 0) & (kp <= qp) & (kp > qp - window)
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, vv).to(h.dtype)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vv).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------------

@@ -156,11 +156,12 @@ def _load_tree(d: str, template, manifest: dict, prefix: str, param: bool):
     meta = manifest["leaves"]
     loaded = {}
     for key, leaf in _leaf_paths(template, prefix, param):
-        t = _read(d, meta[key]).to(leaf.device)
+        t = _read(d, meta[key])
         if tuple(t.shape) != tuple(leaf.shape) or t.dtype != leaf.dtype:
             raise ValueError(f"checkpoint leaf {key}: {t.dtype} "
                              f"{tuple(t.shape)}, the template's "
                              f"{leaf.dtype} {tuple(leaf.shape)}")
+        t = _place(t, leaf)
         loaded[key] = t.requires_grad_(leaf.requires_grad)
 
     def rebuild(tree, path):
@@ -171,6 +172,31 @@ def _load_tree(d: str, template, manifest: dict, prefix: str, param: bool):
         return loaded[f"{path}/0" if param else path]
 
     return rebuild(template, prefix)
+
+
+def _place(full: torch.Tensor, leaf) -> torch.Tensor:
+    """The whole stored leaf on the template leaf's device; for a DTensor
+    template, this rank's shard of it under the template's placements
+    (sharded dims split in mesh-dim order, the major axis first), wrapped
+    with ``DTensor.from_local``: every rank reads the whole leaf from its
+    file and keeps its own shard, so a restore needs no collective.  A
+    meta template places on its mesh's device."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(leaf, DTensor):
+        return full.to(leaf.device)
+    mesh = leaf.device_mesh
+    local = full
+    for i, p in enumerate(leaf.placements):
+        if p.is_shard():
+            local = local.tensor_split(mesh.size(i), dim=p.dim)[
+                mesh.get_local_rank(i)]
+    device = leaf.to_local().device
+    if device.type == "meta":
+        device = torch.device(mesh.device_type, torch.cuda.current_device()) \
+            if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    return DTensor.from_local(local.contiguous().to(device), mesh,
+                              leaf.placements, run_check=False,
+                              shape=full.shape, stride=full.stride())
 
 
 def _manifest_subtree(d: str, manifest: dict, prefix: str):
@@ -193,9 +219,10 @@ def _manifest_subtree(d: str, manifest: dict, prefix: str):
 def restore(ckpt_dir: str, step: int, params_template,
             opt_template: Optional[Any] = None):
     """(params, opt_state, step) of a committed step: new tensors in the
-    templates' structure, devices and ``requires_grad``; without an
-    optimizer template its tree comes from the manifest (nested dicts of
-    CPU tensors)."""
+    templates' structure, devices and ``requires_grad``; a DTensor template
+    leaf gets a DTensor of its placements, each rank holding its shard
+    (``_place``).  Without an optimizer template its tree comes from the
+    manifest (nested dicts of CPU tensors)."""
     d = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)

@@ -74,9 +74,11 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def init_opt_state(params) -> dict:
-    """Zero f32 moments beside every parameter and a 0-d int32 step."""
+    """Zero f32 moments beside every parameter (placed as it is, a DTensor
+    parameter's moments too) and a 0-d int32 step."""
     def zeros(t):
-        return torch.zeros(t.shape, dtype=F32, device=t.device)
+        return torch.zeros_like(t, dtype=F32,
+                                memory_format=torch.contiguous_format)
     step = torch.zeros((), dtype=torch.int32,
                        device=leaves(params)[0].device)
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),

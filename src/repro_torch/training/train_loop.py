@@ -49,7 +49,8 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1):
+def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1,
+                    grad_shardings=None):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, updating ``params`` and ``opt_state`` in place.
 
@@ -60,13 +61,23 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1):
     boundary, on what would cross the data-parallel all-reduce.  Metrics
     are 0-d tensors: the loss terms, ``grad_norm``, ``lr`` and
     ``loss_total``.  The step's sections are marked for ``torch.profiler``
-    as ``train/forward``, ``train/backward`` and ``train/optimizer``."""
+    as ``train/forward``, ``train/backward`` and ``train/optimizer``.
+
+    ``grad_shardings``: a tree shaped like ``params`` of DTensor
+    placements.  Each gradient is redistributed to its leaf's placements
+    right after the backward pass, as the reference constrains them at the
+    autodiff boundary: a data-sharded parameter's ``Partial`` gradient
+    then arrives by reduce-scatter instead of all-reduce + slice."""
 
     def grads_of(params, batch):
         with record_function("train/forward"):
             total, metrics = loss_fn(params, cfg, batch)
         with record_function("train/backward"):
             total.backward()
+        if grad_shardings is not None:
+            for t, pl in zip(leaves(params), leaves(grad_shardings)):
+                if t.grad is not None and hasattr(t.grad, "redistribute"):
+                    t.grad = t.grad.redistribute(t.grad.device_mesh, pl)
         return total.detach(), {k: v.detach() for k, v in metrics.items()}
 
     def train_step(params, opt_state, batch):

@@ -265,7 +265,8 @@ def _paged_split_emulation(q, k_pages, v_pages, block_tables, lengths,
                            pages_per_split):
     """Test-only emulation of the CUDA paged kernel's arithmetic in f32, on
     CPU tensors: q pre-scaled in f32; for each live split of a row (its
-    pages from ``pa_ops.split_ranges``), 128 / (D/8) row groups, group rg
+    pages from ``pa_ops.split_ranges``), 128 / lanes row groups (lanes:
+    D/8 rounded up to a power of two), group rg
     taking tokens rg, rg + groups, ... of each page below the length, each
     with its own online softmax (m, l, acc) per query head; the groups
     merged by log-sum-exp; a row of one split normalised there, and the
@@ -276,7 +277,8 @@ def _paged_split_emulation(q, k_pages, v_pages, block_tables, lengths,
     b, h, d = q.shape
     page, kv = k_pages.shape[1], k_pages.shape[2]
     pages_max = block_tables.shape[1]
-    rep, groups = h // kv, 128 // (d // 8)
+    lanes = 1 << (d // 8 - 1).bit_length()      # D/8 up to a power of two
+    rep, groups = h // kv, 128 // lanes
     scale = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32)
     qf = (q.float() * scale).view(b, kv, rep, d)
     tables = block_tables.long()
