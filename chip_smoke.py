@@ -37,7 +37,15 @@ leaf bit-equal, the same tokens served), counts olmo-1b's decode step,
 prefills and train step with the cost counter
 (``launch/cost_analysis.py``) beside the profiler's device time, runs
 four dry-run cells (``launch/dryrun.py``: fake process group, meta
-DTensors) on the card's host,
+DTensors) on the card's host, runs the paper's engine benches on
+full-width olmo-1b (``repro_torch.bench.bridge_opt``'s ablation,
+scheduling ladder, overlap guardrail and slot-masked sweep and
+``bench.cluster``'s rows; every claim row must hold), runs
+``repro_torch.bench.run``'s fourteen modules on the card (the eight paper
+benches' rows held to ``bench/reference_rows.json``), runs the examples
+(``repro_torch.examples``: quickstart, serve_cluster, loader_and_offload,
+serve_cc_policies for olmo-1b and xlstm-1.3b, and train_lm at its own
+full width for 300 steps, then resumed from its step-300 checkpoint),
 checks that each path went through its kernels
 (launch counters: flash + paged for the dense models and the clusters,
 the chunked mLSTM scan for xlstm-1.3b, dequant once per quantized
@@ -67,6 +75,7 @@ no result.
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import os
@@ -172,6 +181,35 @@ NEMOTRON = dict(n_layers=4)
 DRYRUN = (("olmo-1b", "train_4k", False), ("olmo-1b", "prefill_32k", False),
           ("olmo-1b", "decode_32k", False),
           ("deepseek-moe-16b", "decode_32k", True))
+#: the paper benches' claims at full width (``phase_bench_full_width``):
+#: row -> the test its value must pass (the bench states each as 0/1,
+#: except the closure floor and the deadline flush count)
+BENCH_CLAIMS = {
+    "bridge_opt/fresh_share_strictly_decreasing": lambda v: v == 1.0,
+    "bridge_opt/conformance_pass": lambda v: v == 1.0,
+    "obs/closure_min": lambda v: v >= 0.99,
+    "obs/fresh_toll_monotone": lambda v: v == 1.0,
+    "obs/serialization_monotone": lambda v: v == 1.0,
+    "bridge_opt/ladder_deadline_flushes": lambda v: v > 0,
+    "bridge_opt/ladder_conformance_pass": lambda v: v == 1.0,
+    "bridge_opt/ladder_worker_beats_flag_at_high_c": lambda v: v == 1.0,
+    "bridge_opt/overlap_guardrail_ok": lambda v: v == 1.0,
+    "bridge_opt/slot_masked_beats_barrier": lambda v: v == 1.0,
+    "bridge_opt/slot_masked_tokens_identical": lambda v: v == 1.0,
+    "bridge_opt/slot_masked_conformance_pass": lambda v: v == 1.0,
+    "cluster/tenants_serving_simultaneously": lambda v: v == 1.0,
+    "cluster/tenants_isolated": lambda v: v == 1.0,
+    "cluster/tenant_devices_disjoint": lambda v: v == 1.0,
+    "cluster/tenants_finished_all": lambda v: v == 1.0,
+    "cluster/tenants_attestation_gated": lambda v: v == 1.0,
+}
+#: the train_lm example at its own full width (olmo-100m, 119.5 M
+#: parameters): ``steps`` of ``batch`` x ``seq`` into a fresh directory
+#: under ``build/``, then a second call to ``resume_steps`` that must start
+#: at the step-``steps`` checkpoint; the step wall is the median of the
+#: steps from ``median_from``
+TRAIN_LM = dict(steps=300, resume_steps=320, batch=8, seq=128,
+                median_from=20)
 F32_SLACK = 2.0 ** -22
 #: what phase_profile saw of the paged kernel, by model: the lengths of a
 #: profiled decode step and each launch's device time (us)
@@ -994,7 +1032,9 @@ def phase_drift() -> None:
     codec, among others); every value must equal the file's within
     ``REL_TOL``.  Each check's kernel launches are counted and printed.
     Then the obs-on / obs-off host wall-time ratio of the 2x open-loop run,
-    printed (host wall time, no part of the drift file)."""
+    printed (host wall time, no part of the drift file).  The paper's own
+    benches and ``bench.run``'s fourteen modules run in
+    ``phase_benchmarks``."""
     from repro_torch.bench import REL_TOL, chaos, obs, packed, quant, tp
     counters = _counters()
     for mod, name in ((packed, "BENCH_packed.json"), (obs, "BENCH_obs.json"),
@@ -1019,6 +1059,288 @@ def phase_drift() -> None:
     print(f"obs overhead on the card: obs-on / obs-off host wall time "
           f"{ratio:.4f} (interleaved min-of-3; the reference's bound "
           f"{obs.OVERHEAD_LIMIT}, host wall time, not gated here)")
+
+
+def phase_benchmarks() -> dict:
+    """``repro_torch.bench.run``'s fourteen modules on the card at their
+    own (smoke) sizes, one module at a time as the runner calls them
+    (``bench.run.module_lines``).  The eight paper benches' rows are held
+    to ``bench/reference_rows.json`` (the reference's rows on the CPU):
+    names exactly, values within ``REL_TOL``, derived strings equal, the
+    host-wall items exempt; any difference fails the run.  Prints each
+    module's host wall and its kernel launches by wrapper; the rows go to
+    ``build/chip_smoke/bench_rows.csv``.  Returns the launches of all
+    fourteen, by kernel."""
+    from repro_torch.bench import PAPER_BENCHES, REL_TOL, reference_diff
+    from repro_torch.bench.run import MODULES, module_lines
+    launches = dict.fromkeys(_counters(), 0)
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    rows = ["name,us_per_call,derived"]
+    for title, name in MODULES:
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lines = module_lines(name, DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        launches = {k: n + counts[k] for k, n in launches.items()}
+        rows += [f"# --- {title} ---"] + lines
+        held = ""
+        if name in PAPER_BENCHES:
+            problems = reference_diff(name, lines)
+            held = ("; rows equal reference_rows.json (rel tol "
+                    f"{REL_TOL:g})" if not problems else
+                    f"; {len(problems)} rows differ from reference_rows.json")
+            for p in problems:
+                print(f"  {p}")
+            check(not problems, f"bench {name}: rows on the card differ "
+                                f"from the reference's")
+        if name == "replay":
+            held += (" (the *_s rows are modelled seconds of the virtual "
+                     "clock's tpu-v5e bridge profile, not device times)")
+        print(f"bench {name} on the card: {len(lines)} rows, host wall "
+              f"{wall:.2f} s, launches {counts}{held}")
+    with open(os.path.join(out_dir, "bench_rows.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return launches
+
+
+def phase_bench_full_width(model) -> dict:
+    """The paper's engine benches on full-width ``model`` (olmo-1b): the
+    bridge_opt ablation (``run_variant`` for all five variants), its
+    scheduling ladder at c = 2 and 8, overlap guardrail and slot-masked
+    sweep, and the cluster bench's budget, routing and tenancy rows.
+    Every claim of ``BENCH_CLAIMS`` must hold.  Prints each row beside the
+    smoke-width value of ``reference_rows.json`` (virtual-clock values;
+    the full-width model's crossings differ a little), each part's host
+    wall and its kernel launches.  Returns the launches, by kernel."""
+    from repro_torch.bench import REFERENCE_ROWS, load, parse_row
+    from repro_torch.bench import bridge_opt, cluster
+
+    def cluster_lines(fn):
+        return lambda m: [f"{n},{v:.4f},{d}" for n, v, d in fn(m)]
+    parts = [("bridge_opt ablation", bridge_opt.ablation_rows),
+             ("bridge_opt scheduling ladder",
+              bridge_opt.scheduling_ladder_rows),
+             ("bridge_opt overlap guardrail",
+              bridge_opt.overlap_guardrail_rows),
+             ("bridge_opt slot-masked", bridge_opt.slot_masked_rows),
+             ("cluster budget", cluster_lines(cluster.budget_throughput_rows)),
+             ("cluster routing", cluster_lines(cluster.routing_rows)),
+             ("cluster tenancy", cluster_lines(cluster.tenancy_rows))]
+    ref = load(REFERENCE_ROWS)["rows"]
+    smoke = {r["name"]: r["value"] for m in ("bridge_opt", "cluster")
+             for r in ref[m]}
+    launches = dict.fromkeys(_counters(), 0)
+    values = {}
+    for label, fn in parts:
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lines = fn(model)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        launches = {k: n + counts[k] for k, n in launches.items()}
+        print(f"bench full width {label} ({model.cfg.name}, {len(lines)} "
+              f"rows): host wall {wall:.2f} s, launches {counts}")
+        check(counts["flash_attention"] > 0 and counts["paged_attention"] > 0,
+              f"{label}: the engines launched no flash or no paged kernel")
+        for line in lines:
+            row = parse_row(line)
+            values[row["name"]] = row["value"]
+            print(f"  {row['name']} = {row['value']!r} (smoke width "
+                  f"{smoke[row['name']]!r}) {row['derived']}")
+    for name, holds in BENCH_CLAIMS.items():
+        check(name in values, f"full width: no row {name}")
+        check(holds(values[name]), f"full width: claim {name} fails "
+                                   f"({values[name]!r})")
+    held = ", ".join(f"{n} {values[n]!r}" for n in BENCH_CLAIMS)
+    print(f"bench full width: all {len(BENCH_CLAIMS)} claims hold ({held})")
+    return launches
+
+
+class _Tee(io.TextIOBase):
+    """Standard output that is also kept (an example's printed lines)."""
+
+    def __init__(self):
+        self.kept = io.StringIO()
+
+    def write(self, text: str) -> int:
+        self.kept.write(text)
+        return sys.__stdout__.write(text)
+
+    def flush(self) -> None:
+        sys.__stdout__.flush()
+
+
+def _example(name: str, argv: list) -> tuple:
+    """Run ``repro_torch.examples.<name>.main(argv + --device)`` on the card:
+    its printed lines (shown as they come), its result, its host wall and
+    its kernel launches."""
+    import contextlib
+    import importlib
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    argv = argv + ["--device", DEVICE]
+    print(f"example: python -m repro_torch.examples.{name} {' '.join(argv)}")
+    _zero_counts()
+    tee = _Tee()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        result = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    print(f"example {name}: host wall {wall:.2f} s, launches {counts}")
+    return tee.kept.getvalue(), result, counts
+
+
+def phase_examples(card: str) -> dict:
+    """The examples on the card: quickstart, serve_cluster and
+    loader_and_offload; serve_cc_policies for olmo-1b and xlstm-1.3b (the
+    mLSTM scan) at the example's smoke width; train_lm at its own full
+    width (olmo-100m) for ``TRAIN_LM``'s steps into a fresh directory
+    under ``build/``, then resumed to ``resume_steps`` (its first printed
+    step must be the checkpoint's); the loss at the last step must be
+    below the loss at step 0.  Prints the step wall (median), tok/s, peak
+    memory and the checkpoints committed, with the card.  Returns the
+    launches, by kernel."""
+    import shutil
+    from repro_torch.training.checkpoint import committed_steps
+    launches = dict.fromkeys(_counters(), 0)
+
+    def add(counts):
+        return {k: n + counts[k] for k, n in launches.items()}
+
+    text, _, counts = _example("quickstart", [])
+    launches = add(counts)
+    check(text.count("tokens=48") == 2, "quickstart: the two engines did "
+                                        "not each serve 48 tokens")
+    check(counts["flash_attention"] > 0 and counts["paged_attention"] > 0,
+          "quickstart: no flash or paged launch")
+
+    _, result, counts = _example("serve_cluster", [])
+    launches = add(counts)
+    check(result["finished"] == 10 and result["isolation"]["isolated"],
+          f"serve_cluster: {result['finished']} of 10 finished, "
+          f"isolation {result['isolation']}")
+    check(counts["flash_attention"] > 0 and counts["paged_attention"] > 0,
+          "serve_cluster: no flash or paged launch")
+
+    _, result, counts = _example("loader_and_offload", [])
+    launches = add(counts)
+    check(result["bit_exact"], "loader_and_offload: the load through the "
+                               "prewarmed pool is not bit-exact")
+
+    for arch, kernels in (("olmo-1b", ("flash_attention", "paged_attention")),
+                          ("xlstm-1.3b", ("mlstm_scan",))):
+        _, result, counts = _example("serve_cc_policies", ["--arch", arch])
+        launches = add(counts)
+        tokens = [st["total_tokens"] for st in result.values()]
+        check(tokens == [100] * 6, f"serve_cc_policies {arch}: tokens "
+                                   f"{tokens}")
+        check(all(counts[k] > 0 for k in kernels),
+              f"serve_cc_policies {arch}: launches {counts}")
+
+    ckpt_dir = os.path.join(ROOT, "build", f"train_lm_{os.getpid()}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    common = ["--batch", str(TRAIN_LM["batch"]), "--seq", str(TRAIN_LM["seq"]),
+              "--ckpt-dir", ckpt_dir]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _, first, counts = _example(
+            "train_lm", ["--steps", str(TRAIN_LM["steps"])] + common)
+        peak = torch.cuda.max_memory_allocated()
+        commits = committed_steps(ckpt_dir)
+        check(all(n == 0 for n in counts.values()),
+              f"train_lm launched kernels: {counts}")
+        losses = first["losses"]
+        last = TRAIN_LM["steps"] - 1
+        check(sorted(losses) == list(range(TRAIN_LM["steps"])),
+              "train_lm: a step is missing")
+        check(all(math.isfinite(x) for x in losses.values()),
+              "train_lm: non-finite loss")
+        check(losses[last] < losses[0], f"train_lm: loss {losses[0]:.4f} at "
+                                        f"step 0, {losses[last]:.4f} at "
+                                        f"step {last}")
+        walls = [first["step_s"][i]
+                 for i in range(TRAIN_LM["median_from"], TRAIN_LM["steps"])]
+        step = statistics.median(walls)
+        tokens = TRAIN_LM["batch"] * TRAIN_LM["seq"]
+        print(f"train_lm at full width ({first['n_params']} parameters, "
+              f"{TRAIN_LM['batch']}x{TRAIN_LM['seq']}) on {card}: loss "
+              f"{losses[0]:.4f} at step 0 -> {losses[last]:.4f} at step "
+              f"{last}; step wall {step * 1e3:.2f} ms (median of steps "
+              f"{TRAIN_LM['median_from']}-{last}; min "
+              f"{min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}), "
+              f"{tokens / step:.0f} tok/s; peak allocated {peak} bytes; "
+              f"checkpoints committed at {commits}")
+        every = list(range(50, TRAIN_LM["steps"] + 1, 50))
+        want = every + [TRAIN_LM["steps"]] * (TRAIN_LM["steps"] % 50 != 0)
+        check(commits == want, f"train_lm: committed {commits}, expected "
+                               f"{want} (every 50 steps and the last)")
+
+        text, second, _ = _example(
+            "train_lm", ["--steps", str(TRAIN_LM["resume_steps"])] + common)
+        printed = [int(ln.split()[1]) for ln in text.splitlines()
+                   if ln.startswith("step ")]
+        trained = sorted(second["losses"])
+        check(printed and min(printed) >= TRAIN_LM["steps"]
+              and trained[0] == TRAIN_LM["steps"],
+              f"train_lm resume: printed steps {printed}, trained "
+              f"{trained[:3]}...")
+        commits = committed_steps(ckpt_dir)
+        print(f"train_lm resume on {card}: first step trained {trained[0]}, "
+              f"first printed {printed[0]} (resumed from the "
+              f"step-{TRAIN_LM['steps']} checkpoint), {len(trained)} steps, "
+              f"loss {second['losses'][trained[-1]]:.4f} at step "
+              f"{trained[-1]}; checkpoints committed at {commits}")
+        check(commits[-1] == TRAIN_LM["resume_steps"],
+              f"train_lm resume: committed {commits}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    _train_lm_profile(card)
+    return launches
+
+
+def _train_lm_profile(card: str) -> None:
+    """One more train_lm step of the same shape (fresh weights and
+    state), split by ``_train_sections`` into forward / backward /
+    optimizer device time beside its host ranges."""
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.examples.train_lm import olmo_100m
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import (batch_to_device,
+                                                 init_train_state,
+                                                 make_train_step)
+    cfg = olmo_100m()
+    opt = AdamWConfig(lr=3e-3, warmup_steps=30,
+                      total_steps=TRAIN_LM["steps"])
+    params = Model(cfg, seed=0, device=DEVICE).train().params
+    state = init_train_state(params, opt)
+    batch = batch_to_device(next(batches(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_LM["seq"],
+        global_batch=TRAIN_LM["batch"]))), DEVICE)
+    step = make_train_step(cfg, opt)
+    step(params, state, batch)      # the first step's allocations
+    prof = _train_sections(step, params, state, batch)
+    secs = prof["sections"]
+    print(f"train_lm step profile ({cfg.name}, {TRAIN_LM['batch']}x"
+          f"{TRAIN_LM['seq']}) on {card}: wall {prof['wall_us'] / 1e3:.2f} "
+          f"ms without the profiler; device busy "
+          f"{prof['busy_us'] / 1e3:.2f} ms, idle share "
+          f"{_fmt(prof['idle'], '.4f')}; by section (device busy / host "
+          f"range, ms): " + ", ".join(
+              f"{n} {b / 1e3:.2f} / {_fmt(w and w / 1e3, '.2f')}"
+              for n, (b, w) in secs.items())
+          + f"; device time no section launched {prof['other_us'] / 1e3:.3f}"
+          f" ms")
+    for name, (n, us) in prof["top"]:
+        print(f"  {us / 1e3:9.3f} ms  {n:5d} calls  {name}")
 
 
 def _counters() -> dict:
@@ -3754,7 +4076,8 @@ def main() -> None:
     launches = phase_main(model, attention_launches(model.cfg))
     phase_profile(model)
     launches["dequant"] += phase_restore(model)
-    for phase in (phase_chaos, phase_loader, phase_tp):
+    for phase in (phase_chaos, phase_loader, phase_tp,
+                  phase_bench_full_width):
         more = phase(model)
         launches = {k: n + more[k] for k, n in launches.items()}
     phase_cost(model)
@@ -3864,6 +4187,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     phase_drift()
+    for more in (phase_benchmarks(), phase_examples(card)):
+        launches = {k: n + more[k] for k, n in launches.items()}
     phase_dryrun()
     rows = phase_timings(gen, launches, errs)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s on {card}")
