@@ -9,7 +9,9 @@ qwen3-32b, hymba-1.5b (hybrid attention + Mamba-2 heads, sliding
 windows; again with prompts past the window, through its ring caches),
 deepseek-moe-16b (MoE) and deepseek-v2-lite-16b (MLA on MoE; the flash
 kernel at head dim 192) (random weights from a seed) through the port's
-``ServingEngine`` under the sync, async and worker policies, runs
+``ServingEngine`` under the sync, async and worker policies (their tokens
+must agree), holds each row of the paged kernel bit-equal across the
+rows its launch packs for every decode geometry served, runs
 full-width olmo-1b's quantized KV restore under decode (bridge_opt on;
 restore codecs "", fp8 and int8, each restored block widened by the
 dequant kernel; the quantized restores again under seeded restore
@@ -17,7 +19,8 @@ corruption, pipelined and on the sync-restore rung), serves full-width
 olmo-1b from a two-replica confidential cluster (``repro_torch.cluster``)
 under seeded bridge faults (fault-free twice, transient faults, the
 ladder ablation) after a probe of whether a row's logits depend on the
-decode width, writes full-width olmo-1b's weights as a sharded checkpoint
+decode width (probed too at max_len 2048, for qwen1.5-4b, and, as a
+report, for 32 slots), writes full-width olmo-1b's weights as a sharded checkpoint
 and loads them back through the port's ``PooledLoader`` (full width,
 int8 weight-only pricing, TP 4; the loaded model must serve the in-memory
 model's tokens; pageable and page-locked uploads timed beside it), serves
@@ -134,6 +137,25 @@ CHAOS = dict(n_replicas=2, max_batch=8, max_len=1024, block_tokens=16,
 #: the loader phase: full-width olmo-1b's own weights written in
 #: ``n_shards`` shards and loaded back by a pool of ``n_workers``
 LOADER = dict(n_shards=8, n_workers=8)
+#: the paged kernel's width probe: each decode geometry the card serves
+#: (name, query heads, KV heads, head dim; MLA's decode reads its latent
+#: cache without the paged kernel) over page pools of (rows, pages_max)
+#: pages of ``page``, every row launched in calls packing each of
+#: ``widths`` rows that the pool holds
+PAGED_WIDTHS = dict(
+    geometries=(("olmo-1b / deepseek-moe-16b", 16, 16, 128),
+                ("qwen1.5-4b", 20, 20, 128),
+                ("qwen3-32b / qwen3p6-27b / internvl2-76b", 64, 8, 128),
+                ("hymba-1.5b", 25, 5, 64),
+                ("nemotron-4-340b", 96, 8, 192),
+                ("seamless-m4t-medium", 16, 16, 64)),
+    pools=((8, 64), (8, 128), (32, 64)), page=16,
+    widths=(1, 4, 5, 6, 7, 8, 17, 32))
+#: model-level width probes beside the chaos phase's: olmo-1b at
+#: ``long_len`` and qwen1.5-4b at MAIN's length, widths 1 ... MAIN's
+#: max_batch (rows must be width-independent), and olmo-1b with ``wide``
+#: slots at MAIN's length over ``wide_widths`` (a report, not a gate)
+PROBES = dict(long_len=2048, wide=32, wide_widths=(1, 8, 17, 32))
 #: the TP phase: ``benchmarks/bench_tp.py``'s guardrail at full width (a
 #: one-replica cluster, partition of 8; 8 greedy requests, each a shared
 #: prompt of ``prompt_len`` plus ``own_len`` tokens of its own, with
@@ -378,7 +400,8 @@ def _paged_inputs(gen, b, h, kv, d, page, pages_max, lengths, identity):
 def phase_paged(gen) -> float:
     """Every case within BF16_TOL (max abs) and PAGED_REL_L2 (rel L2) of
     the plain version; returns the worst max abs error.  Each case prints
-    the kernel's split size (``ops.pages_per_split``)."""
+    the kernel's split size (``ops.split_plan``: a case's pool holds its
+    ``b`` rows)."""
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     lens8 = [1, 7, 16, 17, 32, 333, 1023, 1024]   # 1, < page, boundaries, max
@@ -390,7 +413,7 @@ def phase_paged(gen) -> float:
 
     def at_splits(b, kv, page, pages_max, extra=()):
         """Lengths one token short of, at and past a split (and two
-        splits), plus ``extra``."""
+        splits) of a pool of ``b`` rows, plus ``extra``."""
         t = ops.pages_per_split(b, kv, pages_max, page) * page
         return [t - 1, t, t + 1, 2 * t + 1, *extra][:b]
 
@@ -439,7 +462,7 @@ def phase_paged(gen) -> float:
         ref = paged_attention_ref(*args).float()
         err = (out - ref).abs().max().item()
         rel = _rel(out, ref)
-        pps = ops.pages_per_split(c["b"], c["kv"], c["pages_max"], c["page"])
+        pps = ops.split_plan(args[1], args[3])
         print(f"paged {c}: split {pps} pages ({pps * c['page']} tokens); "
               f"max_abs_err {err:.3g} rel_l2 {rel:.3g}")
         check(math.isfinite(err) and err <= BF16_TOL,
@@ -449,6 +472,87 @@ def phase_paged(gen) -> float:
               f"L2 {rel}")
         worst = max(worst, err)
     return worst
+
+
+def phase_paged_widths() -> None:
+    """Each row's paged output bit-equal whatever rows share its launch:
+    for each of PAGED_WIDTHS' geometries and pools, random pages and q
+    (a generator of its own) at lengths one token short of, at and past
+    the pool's split (``ops.split_plan``), two splits, the whole row and
+    random ones; the pool's rows through the kernel in calls of each width
+    (the calls of width w take rows s, s+1, ..., s+w-1 modulo the rows, s
+    = 0, w, 2w, ...), each row held bit for bit to the call of every row,
+    which is held to the plain version (BF16_TOL, PAGED_REL_L2).  Prints
+    each pool's plan beside the plans its widths would have chosen had
+    the plan followed the rows a call packs, and, as a report, how many
+    rows stay bit-equal under those plans (each call again over a pool of
+    just its rows' pages, copied, whose ``split_plan`` is that plan)."""
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    gen = torch.Generator(device=DEVICE).manual_seed(26)
+    page = PAGED_WIDTHS["page"]
+    for name, h, kv, d in PAGED_WIDTHS["geometries"]:
+        for rows, pages_max in PAGED_WIDTHS["pools"]:
+            cap = pages_max * page
+            q = _randn(gen, rows, h, d)
+            kp = _randn(gen, rows * pages_max, page, kv, d)
+            vp = _randn(gen, rows * pages_max, page, kv, d)
+            tables = (torch.arange(rows, device=DEVICE)[:, None] * pages_max
+                      + torch.arange(pages_max, device=DEVICE)[None, :]
+                      ).to(torch.int32)
+            pps = ops.split_plan(kp, tables)
+            t = pps * page
+            edges = [1, t - 1, t, t + 1, 2 * t + 1, cap - 1, cap]
+            drawn = torch.randint(1, cap + 1, (rows,), generator=gen,
+                                  device=DEVICE).tolist()
+            lengths = torch.tensor((edges + drawn)[:rows], dtype=torch.int32,
+                                   device=DEVICE)
+            whole = ops.paged_attention(q, kp, vp, tables, lengths)
+            ref = paged_attention_ref(q, kp, vp, tables, lengths)
+            err = (whole.float() - ref.float()).abs().max().item()
+            rel = _rel(whole.float(), ref.float())
+            check(math.isfinite(err) and err <= BF16_TOL
+                  and math.isfinite(rel) and rel <= PAGED_REL_L2,
+                  f"paged widths {name} pool {rows}x{pages_max}: the kernel "
+                  f"disagrees with its plain version: {err} (rel L2 {rel})")
+            widths = [w for w in PAGED_WIDTHS["widths"] if w <= rows]
+            equal = torch.ones(rows, dtype=torch.bool, device=DEVICE)
+            by_width = equal.clone()        # under the width-chosen plans
+            calls = 0
+
+            def same(got, idx):
+                return (got.view(torch.int16) == whole[idx].view(torch.int16)
+                        ).flatten(1).all(1)
+
+            for w in widths:
+                for s in range(0, rows, w):
+                    idx = torch.tensor([(s + i) % rows for i in range(w)],
+                                       device=DEVICE)
+                    equal[idx] &= same(ops.paged_attention(
+                        q[idx], kp, vp, tables[idx], lengths[idx]), idx)
+                    own = [t.view(rows, pages_max, page, kv, d)[idx].flatten(
+                        0, 1) for t in (kp, vp)]
+                    by_width[idx] &= same(ops.paged_attention(
+                        q[idx], *own, tables[:w], lengths[idx]), idx)
+                    calls += 1
+            n_equal = int(equal.sum())
+            chosen = [ops.pages_per_split(w, kv, pages_max, page)
+                      for w in widths]
+            print(f"paged widths {name} (H{h} KV{kv} D{d}), pool of {rows} "
+                  f"rows x {pages_max} pages of {page}: plan {pps} pages "
+                  f"({t} tokens) at every width (chosen by the call's rows "
+                  f"it would be {dict(zip(widths, chosen))}); widths "
+                  f"{widths} in {calls} launches; rows bit-equal across "
+                  f"widths {n_equal} of {rows} (under the width-chosen plans "
+                  f"{int(by_width.sum())}); lengths "
+                  f"{lengths.tolist()}; whole pool vs plain max_abs_err "
+                  f"{err:.3g} rel_l2 {rel:.3g}")
+            check(n_equal == rows, f"paged widths {name} pool {rows}x"
+                                   f"{pages_max}: rows "
+                                   f"{(~equal).nonzero().flatten().tolist()} "
+                                   f"differ across widths")
+            del q, kp, vp
+    torch.cuda.empty_cache()
 
 
 def _mlstm_inputs(gen, b, s, h, dk, dv, dtype, initial_state):
@@ -1355,10 +1459,49 @@ def _counters() -> dict:
             "dequant": dq.dequant}
 
 
-def phase_main(model, expected) -> dict:
+def _main_prompts(cfg, n: int) -> list:
+    """``n`` prompts at MAIN's lengths in turn, tokens drawn from seed 1
+    (the first eight are the main path's)."""
+    gen = torch.Generator().manual_seed(1)
+    lens = MAIN["prompt_lens"]
+    return [torch.randint(1, cfg.vocab_size, (lens[i % len(lens)],),
+                          generator=gen).tolist() for i in range(n)]
+
+
+def phase_width_probes(model, max_lens: tuple, wide: bool = False) -> dict:
+    """``model``'s width probes at MAIN's max_batch and each of
+    ``max_lens`` over widths 1 ... max_batch, on MAIN's prompts: every row
+    must be width-independent.  With ``wide``, also PROBES' wide slots at
+    MAIN's max_len over its wide widths, a report and not a gate: above 8
+    rows a projection's GEMM may run another algorithm for another row
+    count, and the probe names the first op whose output differs.
+    Returns the gated probes by max_len."""
+    probes = {}
+    for max_len in max_lens:
+        probe = _width_probe(model, _main_prompts(model.cfg,
+                                                  MAIN["max_batch"]),
+                             MAIN["max_batch"], max_len)
+        check(probe["independent"], f"width probe {model.cfg.name} at "
+              f"max_len {max_len}: rows depend on the width "
+              f"({probe['first_difference']})")
+        probes[max_len] = probe
+    if wide:
+        _width_probe(model, _main_prompts(model.cfg, PROBES["wide"]),
+                     PROBES["wide"], MAIN["max_len"],
+                     widths=PROBES["wide_widths"])
+    torch.cuda.empty_cache()
+    return probes
+
+
+def phase_main(model, expected, probe: dict = None) -> dict:
     """Serve MAIN's requests under each policy; ``expected(stats, n_req)``
-    gives each kernel's launch count for one run.  Returns the launches of
-    the three runs together, by kernel."""
+    gives each kernel's launch count for one run.  Each token is recorded
+    with the width of the forward that made it and that forward's top-2
+    gap (``_record_widths``), and the async and worker runs' tokens are
+    held to the sync run's by ``_token_criterion`` against ``probe`` (the
+    model's width probe at MAIN's shape; run here only if tokens differ
+    and none was given).  Returns the launches of the three runs together,
+    by kernel."""
     from repro_torch.core.policy import SchedulingPolicy
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.sampler import SamplingParams
@@ -1366,11 +1509,10 @@ def phase_main(model, expected) -> dict:
 
     cfg = model.cfg
     vocab = cfg.vocab_size
-    gen = torch.Generator().manual_seed(1)
-    prompts = [torch.randint(1, vocab, (n,), generator=gen).tolist()
-               for n in MAIN["prompt_lens"]]
+    prompts = _main_prompts(cfg, len(MAIN["prompt_lens"]))
     counters = _counters()
     launches = dict.fromkeys(counters, 0)
+    runs = {}
     for policy in (SchedulingPolicy.SYNC_DRAIN, SchedulingPolicy.ASYNC_OVERLAP,
                    SchedulingPolicy.WORKER_DRAIN):
         engine = ServingEngine(model, max_batch=MAIN["max_batch"],
@@ -1379,12 +1521,14 @@ def phase_main(model, expected) -> dict:
         finite = torch.ones((), dtype=torch.bool, device=DEVICE)
         prefill_s = [0.0]
         inner_prefill, inner_decode = model.prefill, model.decode_step
+        records, stash = {}, {}
 
         def prefill(*a, **k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = inner_prefill(*a, **k)
             finite.logical_and_(torch.isfinite(out[0]).all())
+            stash["gap"] = _top2_gap(out[0])
             torch.cuda.synchronize()
             prefill_s[0] += time.perf_counter() - t0
             return out
@@ -1392,9 +1536,11 @@ def phase_main(model, expected) -> dict:
         def decode_step(*a, **k):
             out = inner_decode(*a, **k)
             finite.logical_and_(torch.isfinite(out[0]).all())
+            stash["gap"] = _top2_gap(out[0])
             return out
 
         model.prefill, model.decode_step = prefill, decode_step
+        _record_widths(engine, records, stash)
         recorder = TraceRecorder(engine.gateway, policy=policy.value,
                                  label=f"chip-smoke-{policy.value}")
         for i, p in enumerate(prompts):
@@ -1447,6 +1593,26 @@ def phase_main(model, expected) -> dict:
               f"{prefill_s[0]:.4f} s, decode {decode_tokens} tokens in "
               f"{decode_wall:.4f} s = {decode_tokens / decode_wall:.1f} "
               f"decode tok/s")
+        runs[policy.value] = dict(tokens={r.request_id: r.output_tokens
+                                          for r in engine.finished},
+                                  records=records)
+    base, others = runs.pop("sync"), runs
+    if probe is None and any(r["tokens"] != base["tokens"]
+                             for r in others.values()):
+        probe = _width_probe(model, prompts, MAIN["max_batch"],
+                             MAIN["max_len"])
+    explained = {name: _token_criterion(f"main path {cfg.name} {name}", base,
+                                        run, probe, base_name="sync")
+                 for name, run in others.items()}
+    same = sum(all(r["tokens"][rid] == want for r in others.values())
+               for rid, want in base["tokens"].items())
+    widths = sorted({w for recs in base["records"].values() for w, _ in recs
+                     if w})
+    print(f"main path {cfg.name} tokens across policies: {same} of "
+          f"{len(base['tokens'])} requests equal under sync, async and "
+          f"worker; explained by width {explained}; decode widths in the "
+          f"sync run {widths}; rows width-independent "
+          f"{'not probed' if probe is None else probe['independent']}")
     return launches
 
 
@@ -2639,77 +2805,173 @@ def _top2_gap(logits: torch.Tensor) -> torch.Tensor:
     return top[:, 0] - top[:, 1]
 
 
-def _width_probe(model, prompts: list) -> dict:
-    """The same 8 resident rows through ``model.decode_step`` at several
-    widths: packed 8, packed 5 (rows 0-4 and rows 3-7), each row alone,
-    and dense (all 8 slots, rows 5-7 as the dense step's padding), each
+def _record_ops(record: list):
+    """Patch the decode forward so each block's einsum outputs and its
+    attention output (``_paged_core``'s) are appended to ``record`` as
+    (label, tensor), the label naming the block (its call's number) and
+    the einsum's equation with its call's number within the block (a dense
+    block: q, k, v ``bsd,dhk->bshk`` [0-2], attention, ``bshk,hkd->bsd``,
+    the MLP's ``bsd,df->bsf`` and ``bsf,fd->bsd``; the logits
+    ``bsd,dv->bsv`` after the last block).  Returns a function that undoes
+    the patch."""
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import transformer
+    block, seen = [-1], {}
+    saved = torch.einsum, transformer._paged_core, model_mod.block_apply
+    einsum, core, apply = saved
+
+    def note(what, out):
+        n = seen.get((block[0], what), 0)
+        seen[(block[0], what)] = n + 1
+        record.append((f"block {block[0]} {what}[{n}]", out.detach().clone()))
+        return out
+
+    def block_apply(*a, **k):
+        block[0] += 1
+        return apply(*a, **k)
+
+    torch.einsum = lambda eq, *ops: note(eq, einsum(eq, *ops))
+    transformer._paged_core = lambda *a: note("attention", core(*a))
+    model_mod.block_apply = block_apply
+
+    def undo():
+        torch.einsum, transformer._paged_core, model_mod.block_apply = saved
+    return undo
+
+
+def _width_probe(model, prompts: list, max_batch: int, max_len: int,
+                 widths=None) -> dict:
+    """``max_batch`` resident rows (one per prompt, after one decode step
+    of an engine of ``max_batch`` slots at ``max_len``) through
+    ``model.decode_step`` at each of ``widths`` (default 1 ...
+    ``max_batch``): the calls of width w take rows s, ..., s+w-1 modulo
+    the rows (s = 0, w, 2w, ...), so every row runs at every width; and
+    dense (every slot, the second half as the dense step's padding); each
     call on its own copy of the cache.  Returns whether every row's logits
-    are bit-equal across the widths it ran at and the largest difference
-    (against packed 8)."""
+    are bit-equal across the widths it ran at, the largest difference
+    against the widest call, by width, and the top-2 gaps there.  Where a
+    row differs, the first differing call is run again beside the widest
+    with ``_record_ops`` and the first block and op whose output for that
+    row differs is named."""
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.sampler import SamplingParams
-    engine = ServingEngine(model, max_batch=CHAOS["max_batch"],
-                           max_len=CHAOS["max_len"], cc_on=True, seed=0,
-                           device=DEVICE)
+    widths = list(widths or range(1, max_batch + 1))
+    engine = ServingEngine(model, max_batch=max_batch, max_len=max_len,
+                           cc_on=True, seed=0, device=DEVICE)
     try:
-        for i, p in enumerate(prompts):
+        for i, p in enumerate(prompts[:max_batch]):
             engine.submit(Request(f"p{i}", prompt=p,
                                   sampling=SamplingParams(max_new_tokens=4)))
         engine.step()               # all resident, one decode step taken
         slots = sorted(engine.active)
-        check(len(slots) == CHAOS["max_batch"], "width probe: not all rows "
-                                                "resident")
-        tokens = [engine.active[s].output_tokens[-1] for s in slots]
-        index = [engine.active[s].index for s in slots]
+        check(len(slots) == max_batch, "width probe: not all rows resident")
+        tokens = {s: engine.active[s].output_tokens[-1] for s in slots}
+        index = {s: engine.active[s].index for s in slots}
 
-        def run(rows, width):
-            """Rows ``rows`` at slots ``rows`` in a call of ``width`` rows
-            (the rest, if any, padding at their slots)."""
+        def run(rows, width, record=None):
+            """Rows ``rows`` at their slots in a call of ``width`` rows
+            (the rest, if any, padding at their slots): {slot: logits}, or
+            with ``record`` {label: {slot: output row}} of ``_record_ops``."""
             pad = [s for s in slots if s not in rows][:width - len(rows)]
-            call = list(rows) + pad
+            call = sorted(list(rows) + pad)
             tok = torch.tensor([[tokens[s] if s in rows else 0]
                                 for s in call], dtype=torch.int32,
                                device=DEVICE)
             idx = torch.tensor([index[s] if s in rows else 0 for s in call],
                                dtype=torch.int32, device=DEVICE)
             sl = torch.tensor(call, dtype=torch.int32, device=DEVICE)
-            order = sorted(range(len(call)), key=lambda i: call[i])
-            logits, _ = model.decode_step(_clone_tree(engine.caches),
-                                          tok[order], idx[order], sl[order])
+            ops = []
+            undo = _record_ops(ops) if record else None
+            try:
+                logits, _ = model.decode_step(_clone_tree(engine.caches),
+                                              tok, idx, sl, max_len=max_len)
+            finally:
+                if undo:
+                    undo()
+            if record:                  # the ops over the call's rows
+                return {label: {s: out[j] for j, s in enumerate(call)
+                                if s in rows} for label, out in ops
+                        if out.shape[:1] == (len(call),)}
             lg = logits.reshape(len(call), -1).float()
-            return {call[i]: lg[j] for j, i in enumerate(order)
-                    if call[i] in rows}
+            return {s: lg[j] for j, s in enumerate(call) if s in rows}
 
-        full = run(slots, 8)
-        configs = {"packed 5 (rows 0-4)": run(slots[:5], 5),
-                   "packed 5 (rows 3-7)": run(slots[3:], 5),
-                   "dense (rows 0-4, 3 padding)": run(slots[:5], 8)}
-        alone = {}
-        for s in slots:
-            alone.update(run([s], 1))
-        configs["packed 1 (each row alone)"] = alone
+        def cyclic(w):
+            return [[slots[(i + j) % max_batch] for j in range(w)]
+                    for i in range(0, max_batch, w)]
+
+        wide = max(widths)
+        full = {}
+        for rows in cyclic(wide):
+            full.update(run(rows, wide))
+        half = slots[:max_batch // 2]
+        configs = {f"packed {w}": (w, cyclic(w)) for w in widths if w != wide}
+        configs[f"dense (rows {half[0]}-{half[-1]}, "
+                f"{max_batch - len(half)} padding)"] = (max_batch, [half])
+        equal, worst, by_config, first = ({s: True for s in slots}, 0.0, {},
+                                          None)
+        for name, (w, calls) in configs.items():
+            diff = 0.0
+            for rows in calls:
+                for s, lg in run(rows, w).items():
+                    diff = max(diff, (lg - full[s]).abs().max().item())
+                    if not torch.equal(lg, full[s]):
+                        equal[s] = False
+                        first = first or (s, w, rows)
+            by_config[name] = diff
+            worst = max(worst, diff)
+        where = None
+        if first is not None:
+            s, w, mine = first
+            theirs = next(r for r in cyclic(wide) if s in r)
+            a, b = run(theirs, wide, record=True), run(mine, w, record=True)
+            where = "no recorded op differs"
+            for label in (x for x in a if x in b):
+                if not torch.equal(a[label][s], b[label][s]):
+                    d = (a[label][s].float() - b[label][s].float()).abs()
+                    where = (f"row at slot {s}, width {w} against {wide}: "
+                             f"first at {label}, max |difference| "
+                             f"{d.max().item()!r}")
+                    break
         torch.cuda.synchronize()
     finally:
         engine.close()
-    equal, worst = {s: True for s in slots}, 0.0
-    by_config = {}
-    for name, rows in configs.items():
-        diffs = {s: (rows[s] - full[s]).abs().max().item() for s in rows}
-        for s, d in diffs.items():
-            equal[s] = equal[s] and torch.equal(rows[s], full[s])
-        by_config[name] = max(diffs.values())
-        worst = max(worst, by_config[name])
     gaps = torch.stack([_top2_gap(full[s][None])[0] for s in slots])
     out = dict(independent=all(equal.values()), max_diff=worst,
                rows_equal=[equal[s] for s in slots], by_config=by_config,
-               gaps=gaps.tolist())
+               gaps=gaps.tolist(), first_difference=where)
     per_config = ", ".join(f"{k} {v!r}" for k, v in by_config.items())
-    print(f"width probe ({model.cfg.name}, 8 resident rows at lengths "
-          f"{[i + 1 for i in index]}): rows bit-equal across widths "
-          f"{out['rows_equal']}; largest |logit difference| against packed "
-          f"8: {worst!r} ({per_config}); top-2 gaps at packed 8 "
-          f"{[round(g, 6) for g in out['gaps']]}")
+    print(f"width probe ({model.cfg.name}, {max_batch} slots at max_len "
+          f"{max_len}, resident rows at lengths "
+          f"{[index[s] + 1 for s in slots]}, widths {widths} and dense): "
+          f"rows bit-equal across widths {sum(out['rows_equal'])} of "
+          f"{max_batch}; independent {out['independent']}; largest |logit "
+          f"difference| against packed {wide}: {worst!r} ({per_config}); "
+          f"top-2 gaps at packed {wide} "
+          f"{[round(g, 6) for g in out['gaps']]}"
+          + (f"; {where}" if where else ""))
     return out
+
+
+def _record_widths(engine, records: dict, stash: dict) -> None:
+    """Patch ``engine`` so each token it makes is recorded in
+    ``records[request_id]`` as (the width of the forward that made it, 0
+    for the prefill; that forward's top-2 logit gap for the token's row),
+    the gaps read from ``stash["gap"]``, which the model's wrapped
+    ``prefill`` / ``decode_step`` set (``_top2_gap``)."""
+    def admit(req, slot, _inner=engine._prefill_into_slot):
+        _inner(req, slot)
+        records[req.request_id] = [(0, stash["gap"][0].item())]
+
+    def consume(ready, host, *, by_position, _inner=engine._consume):
+        step = engine.trace[-1]
+        gaps = stash["gap"].cpu()
+        width = step.packed or engine.max_batch
+        for pos, s in enumerate(ready):
+            records[engine.active[s].request_id].append(
+                (width, gaps[pos if step.packed else s].item()))
+        _inner(ready, host, by_position=by_position)
+
+    engine._prefill_into_slot, engine._consume = admit, consume
 
 
 def _chaos_run(model, prompts: list, plan, *, ladder: bool = True) -> dict:
@@ -2754,23 +3016,7 @@ def _chaos_run(model, prompts: list, plan, *, ladder: bool = True) -> dict:
         return out
 
     for r in cluster.replicas:
-        eng = r.engine
-
-        def admit(req, slot, _inner=eng._prefill_into_slot):
-            _inner(req, slot)
-            records[req.request_id] = [(0, stash["gap"][0].item())]
-
-        def consume(ready, host, *, by_position, _eng=eng,
-                    _inner=eng._consume):
-            step = _eng.trace[-1]
-            gaps = stash["gap"].cpu()
-            width = step.packed or _eng.max_batch
-            for pos, s in enumerate(ready):
-                records[_eng.active[s].request_id].append(
-                    (width, gaps[pos if step.packed else s].item()))
-            _inner(ready, host, by_position=by_position)
-
-        eng._prefill_into_slot, eng._consume = admit, consume
+        _record_widths(r.engine, records, stash)
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
@@ -2815,38 +3061,40 @@ def _chaos_run(model, prompts: list, plan, *, ladder: bool = True) -> dict:
     return out
 
 
-def _token_criterion(label: str, base: dict, run: dict, probe: dict) -> int:
-    """Hold ``run``'s tokens to the fault-free run's.  With width-independent
-    rows they must be equal; otherwise each request's tokens must equal the
-    fault-free run's up to a first difference, where a forward of that
-    request up to the token ran at another width in the two runs (the
-    token's own, or an earlier one whose K/V it reads) and the fault-free
-    top-2 logit gap is at most the width probe's largest difference.
-    Returns the number of such requests; any other difference fails."""
+def _token_criterion(label: str, base: dict, run: dict, probe: dict,
+                     base_name: str = "the fault-free run") -> int:
+    """Hold ``run``'s tokens to ``base``'s (``base_name``).  With
+    width-independent rows they must be equal; otherwise each request's
+    tokens must equal the base run's up to a first difference, where a
+    forward of that request up to the token ran at another width in the
+    two runs (the token's own, or an earlier one whose K/V it reads) and
+    the base run's top-2 logit gap is at most the width probe's largest
+    difference.  Returns the number of such requests; any other difference
+    fails.  ``probe`` is read only where tokens differ."""
     explained = at_token = 0
     for rid, want in base["tokens"].items():
         got = run["tokens"][rid]
         if got == want:
             continue
-        check(not probe["independent"], f"chaos {label}: {rid}'s tokens "
-              f"differ from the fault-free run's, though rows are "
-              f"width-independent")
-        check(len(got) == len(want), f"chaos {label}: {rid} has {len(got)} "
-                                     f"tokens, fault-free {len(want)}")
+        check(not probe["independent"], f"{label}: {rid}'s tokens differ "
+              f"from {base_name}'s, though rows are width-independent")
+        check(len(got) == len(want), f"{label}: {rid} has {len(got)} "
+                                     f"tokens, {base_name} {len(want)}")
         p = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
         bw = [w for w, _ in base["records"][rid]]
         rw = [w for w, _ in run["records"][rid]]
         gap = base["records"][rid][p][1]
         other = [i for i in range(p + 1) if bw[i] != rw[i]]
         check(bool(other) and gap <= probe["max_diff"],
-              f"chaos {label}: {rid} differs first at token {p} (fault-free "
-              f"{want[p]}, here {got[p]}); widths fault-free {bw[:p + 1]}, "
-              f"here {rw[:p + 1]}; fault-free top-2 gap {gap!r} against the "
-              f"probe's largest difference {probe['max_diff']!r}")
+              f"{label}: {rid} differs first at token {p} ({base_name} "
+              f"{want[p]}, here {got[p]}); widths in {base_name} "
+              f"{bw[:p + 1]}, here {rw[:p + 1]}; {base_name}'s top-2 gap "
+              f"{gap!r} against the probe's largest difference "
+              f"{probe['max_diff']!r}")
         explained += 1
         at_token += bw[p] != rw[p]
     if explained:
-        print(f"  {explained} requests differ from the fault-free run's "
+        print(f"  {label}: {explained} requests differ from {base_name}'s "
               f"tokens within the width criterion ({at_token} at a token "
               f"made at another width, {explained - at_token} after an "
               f"earlier forward at another width)")
@@ -2874,7 +3122,8 @@ def phase_chaos(model) -> dict:
     prompts = [prefix + torch.randint(1, vocab, (CHAOS["own_len"],),
                                       generator=gen).tolist()
                for _ in range(n)]
-    probe = _width_probe(model, prompts[:CHAOS["max_batch"]])
+    probe = _width_probe(model, prompts, CHAOS["max_batch"],
+                         CHAOS["max_len"])
     seed, rate = CHAOS["seed"], CHAOS["rate"]
     ablation = FaultPlan(seed=seed, crossing_failure_p=rate,
                          restore_corruption_p=rate)
@@ -2918,7 +3167,8 @@ def phase_chaos(model) -> dict:
     base = runs["fault-free"]
     check(runs["fault-free again"]["tokens"] == base["tokens"],
           "chaos: two fault-free runs gave different tokens")
-    differ = {label: _token_criterion(label, base, runs[label], probe)
+    differ = {label: _token_criterion(f"chaos {label}", base, runs[label],
+                                      probe)
               for label, plan, _ in arms if plan is not None}
     arms_equal = (runs["ablation, ladder on"]["tokens"]
                   == runs["ablation, ladder off"]["tokens"])
@@ -3438,7 +3688,7 @@ def _time_paged(gen, launches: dict, errs: dict) -> dict:
     vc = torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
     bt = (torch.arange(b, device=DEVICE)[:, None] * pages_max
           + torch.arange(pages_max, device=DEVICE)[None, :]).to(torch.int32)
-    pps = pa.pages_per_split(b, kv, pages_max, page)
+    pps = pa.split_plan(kc[0], bt)
     turn = [0]
 
     def at(lengths) -> dict:
@@ -3629,6 +3879,7 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
     rows.append(_time_flash(gen, launches, errs))
     print(f"card after the flash timings: {_clocks()}")
     rows.append(_time_paged(gen, launches, errs))
+    rows[-1]["narrow_steps_of_a_32_row_pool"] = _time_paged_narrow()
 
     rows.append(_time_mlstm(gen, launches, errs))
 
@@ -3641,6 +3892,58 @@ def phase_timings(gen, launches: dict, errs: dict) -> list:
                                for arch, t in layouts.items()
                                if row["name"] in t}
     return rows
+
+
+def _time_paged_narrow() -> dict:
+    """The paged kernel in calls of 1 and 8 rows of a pool of PROBES'
+    wide rows (olmo-1b's heads, MAIN's length in pages of 16, each row
+    full), device ms in turns: with the pool's plan, as the kernel launches
+    now, and with the plan the call's rows chose before the plan followed
+    the pool (the same table over the same pages seen as a pool of just
+    the call's rows, whose ``split_plan`` is that plan).  Both are held to
+    the plain version; a generator of its own keeps later inputs."""
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    gen = torch.Generator(device=DEVICE).manual_seed(27)
+    rows, h, kv, d, page = PROBES["wide"], 16, 16, 128, 16
+    pages_max = MAIN["max_len"] // page
+    q = _randn(gen, rows, h, d)
+    kc, vc = (_randn(gen, rows * pages_max, page, kv, d) for _ in range(2))
+    out = {}
+    for b in (1, 8):
+        qb = q[:b]
+        bt = (torch.arange(b, device=DEVICE)[:, None] * pages_max
+              + torch.arange(pages_max, device=DEVICE)[None, :]).to(
+                  torch.int32)
+        ln = torch.full((b,), pages_max * page, dtype=torch.int32,
+                        device=DEVICE)
+        own = (kc[:b * pages_max], vc[:b * pages_max])
+        fns = dict(pool=lambda: pa.paged_attention(qb, kc, vc, bt, ln),
+                   width=lambda: pa.paged_attention(qb, *own, bt, ln))
+        ref = paged_attention_ref(qb, kc, vc, bt, ln).float()
+        for name, fn in fns.items():
+            err = (fn().float() - ref).abs().max().item()
+            check(math.isfinite(err) and err <= BF16_TOL,
+                  f"paged narrow {name} plan at B={b}: {err}")
+        got = _in_turns(fns, f"paged {b} rows of a {rows}-row pool")
+        tokens = b * pages_max * page
+        bms, by = bound(4.0 * h * d * tokens,
+                        2 * b * h * d * 2 + tokens * kv * d * 2 * 2
+                        + b * pages_max * 4 + b * 4)
+        plans = dict(pool=pa.split_plan(kc, bt), width=pa.split_plan(own[0],
+                                                                    bt))
+        print(f"timing paged narrow step (B={b} of a {rows}-row pool, H={h} "
+              f"KV={kv} D={d} page={page}, every row {pages_max * page} "
+              f"tokens): the pool's plan ({plans['pool']} pages a split) "
+              f"{_ms(got['pool'])}; the width-chosen plan ({plans['width']} "
+              f"pages) {_ms(got['width'])}; pool / width "
+              f"{_ratio(got['pool'], got['width'])}; bound {bms:.5f} ms "
+              f"({by})")
+        out[f"b{b}"] = dict(pool_ms=got["pool"], width_ms=got["width"],
+                            pool_pages_per_split=plans["pool"],
+                            width_pages_per_split=plans["width"],
+                            bound_ms=bms)
+    return out
 
 
 def _time_wide_flash(gen) -> dict:
@@ -3767,7 +4070,7 @@ def _time_layouts(gen) -> dict:
                         2 * b * h * d * 2 + tokens * kv * d * 2 * 2
                         + sum(-(-n // page) for n in lengths) * 4 + b * 4)
         print(f"timing paged at {arch}'s heads (B={b} H={h} KV={kv} D={d} "
-              f"page={page}, split {pa.pages_per_split(b, kv, pages_max, page)}"
+              f"page={page}, split {pa.split_plan(kc, bt)}"
               f" pages, lengths={lengths}): kernel {_ms(got['kernel'])}, "
               f"sdpa over the slot cache with a length mask "
               f"{_ms(got['sdpa'])}, bound {bms:.5f} ms ({by}); kernel / sdpa "
@@ -4066,14 +4369,15 @@ def main() -> None:
     phase_build()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     errs = {"flash_attention": phase_flash(gen),
-            "paged_attention": phase_paged(gen),
-            "mlstm_scan": phase_mlstm(gen),
-            "dequant": phase_dequant(gen)}
+            "paged_attention": phase_paged(gen)}
+    phase_paged_widths()
+    errs.update(mlstm_scan=phase_mlstm(gen), dequant=phase_dequant(gen))
 
     # olmo-1b: flash prefill, paged decode
     model = init_model("olmo-1b")
     phase_model_check(model)
     launches = phase_main(model, attention_launches(model.cfg))
+    phase_width_probes(model, (PROBES["long_len"],), wide=True)
     phase_profile(model)
     launches["dequant"] += phase_restore(model)
     for phase in (phase_chaos, phase_loader, phase_tp,
@@ -4120,7 +4424,10 @@ def main() -> None:
     for arch in ("qwen1.5-4b", "qwen3p6-27b", "qwen3-32b"):
         model = init_model(arch)
         phase_model_check(model)
-        more = phase_main(model, attention_launches(model.cfg))
+        probes = (phase_width_probes(model, (MAIN["max_len"],))
+                  if arch == "qwen1.5-4b" else {})
+        more = phase_main(model, attention_launches(model.cfg),
+                          probes.get(MAIN["max_len"]))
         launches = {k: n + more[k] for k, n in launches.items()}
         if arch != "qwen1.5-4b":
             phase_profile(model)

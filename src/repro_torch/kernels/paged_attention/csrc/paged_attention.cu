@@ -15,10 +15,12 @@
 // bytes of the live pages bound it.  What the design does about that:
 // - Split over pages.  Block (split, KV head x head group, sequence) takes
 //   pages [split*pps, min((split+1)*pps, n_pages)) of its row.  pps (pages
-//   per split) is the host's choice from B, KV, pages_max and page only
-//   (ops.pages_per_split; the lengths stay on the device), so a long row's
-//   pages are read by many SMs side by side instead of by one in turn.  A
-//   block whose split starts at or past its row's n_pages returns at once.
+//   per split) is the host's choice from the page pool's rows (P /
+//   pages_max), KV, pages_max and page only (ops.split_plan; the lengths
+//   stay on the device), so a long row's pages are read by many SMs side by
+//   side instead of by one in turn.  pps never depends on B: a row's splits,
+//   and so its merged bits, are the same whichever rows share its launch.
+//   A block whose split starts at or past its row's n_pages returns at once.
 // - Several pages in flight.  The split's block-table entries are read
 //   into shared memory first; its pages then stream through a ring of
 //   NSTAGE page stages (K and V) with 16-byte cp.async copies, NSTAGE - 1

@@ -9,10 +9,16 @@ launches (one per call).  Meta tensors (the dry run) run the plain
 version as shape analysis under the region ``KERNEL_paged_attention``,
 which also marks the launch on the card.
 
-The kernel splits each row's pages over blocks (flash-decoding).
-``pages_per_split`` is the host's split plan, from the shapes alone (the
-lengths stay on the device), and ``split_ranges`` the pages each split of
-a row covers, as the kernel computes them.
+The kernel splits each row's pages over blocks (flash-decoding) and
+merges the splits by log-sum-exp, so a row's output bits depend on where
+its splits fall.  ``split_plan`` is the host's plan: the pages per split
+of a page pool, from quantities fixed for the pool's lifetime (its rows
+``P // pages_max``, KV, ``pages_max`` and the page size; the lengths stay
+on the device), never from the number of rows a call packs.  So a row
+gives the same bits whichever rows share its call (a serving engine's
+packed step of any width), as the reference's decode attention does.
+``pages_per_split`` is the rule, and ``split_ranges`` the pages each split
+of a row covers, as the kernel computes them.
 """
 
 from __future__ import annotations
@@ -29,8 +35,9 @@ from .ref import paged_attention_ref
 #: tokens a split covers at least, so a block's set-up and merge are spread
 #: over enough bytes
 SPLIT_TOKENS = 64
-#: blocks the grid may hold when every row is full (16 per SM of the
-#: H100's 132); beyond it splits grow
+#: blocks the grid may hold when every row the pool holds is full and in
+#: the call (16 per SM of the H100's 132); beyond it splits grow.  A call
+#: of fewer rows launches fewer blocks with the same splits
 GRID_CAP = 16 * 132
 #: query heads one block serves (the kernel's HEADS_MAX); further heads of
 #: a KV head go to further head groups
@@ -39,14 +46,26 @@ HEADS_PER_BLOCK = 8
 HEAD_DIMS = (32, 64, 128, 192, 256)
 
 
-def pages_per_split(b: int, kv: int, pages_max: int, page: int) -> int:
-    """Pages per split: ``SPLIT_TOKENS`` worth of pages, doubled while the
-    grid of full rows would pass ``GRID_CAP`` blocks, at most
+def pages_per_split(rows: int, kv: int, pages_max: int, page: int) -> int:
+    """Pages per split for a pool of ``rows`` rows of ``pages_max`` pages:
+    ``SPLIT_TOKENS`` worth of pages, doubled while the grid of all the
+    pool's rows, each full, would pass ``GRID_CAP`` blocks, at most
     ``pages_max``."""
     pps = max(1, -(-SPLIT_TOKENS // page))
-    while pps < pages_max and b * kv * -(-pages_max // pps) > GRID_CAP:
+    while pps < pages_max and rows * kv * -(-pages_max // pps) > GRID_CAP:
         pps *= 2
     return max(1, min(pps, pages_max))
+
+
+def split_plan(k_pages: torch.Tensor, block_tables: torch.Tensor) -> int:
+    """Pages per split of a call over ``k_pages`` (P, page, KV, D) through
+    ``block_tables`` (B, pages_max): ``pages_per_split`` of the pool's rows,
+    ``P // pages_max`` (at least 1).  B, the rows the call packs, is not
+    read: every call on one pool splits each row alike."""
+    pages_max = block_tables.shape[1]
+    rows = max(1, k_pages.shape[0] // pages_max)
+    return pages_per_split(rows, k_pages.shape[2], pages_max,
+                           k_pages.shape[1])
 
 
 def split_ranges(length: int, page: int, pages_max: int,
@@ -116,7 +135,7 @@ def _launch(q, k_pages, v_pages, block_tables, lengths):
     page, kv = k_pages.shape[1], k_pages.shape[2]
     pages_max = block_tables.shape[1]
     out = torch.empty_like(q)
-    pps = pages_per_split(b, kv, pages_max, page)
+    pps = split_plan(k_pages, block_tables)
     splits = -(-pages_max // pps)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ws = counters = None

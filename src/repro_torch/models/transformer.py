@@ -540,6 +540,8 @@ def _paged_core(q, k, v, cache, cache_index, rows):
 
     page = page_size_for(cap)
     kv_heads, hd = ck.shape[2], ck.shape[3]
+    # the pages view every slot, so the kernel's split plan follows n_slots
+    # and a row's bits do not depend on how many rows this step packs
     k_pages = ck.view(n_slots * cap // page, page, kv_heads, hd)
     v_pages = cv.view(n_slots * cap // page, page, kv_heads, hd)
     tables = slot_block_tables(rows, cap, page)

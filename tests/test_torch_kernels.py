@@ -364,10 +364,29 @@ SPLIT_LENGTHS = [0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1023, 1024,
                  1025, 5000]
 
 
+#: page pools (rows, KV, pages_max, page): qwen1.5-4b's KV 20 and
+#: olmo-1b's KV 16 at 128 pages, whose plans moved with the packed width
+#: while the width chose them, 32-row pools of KV 16 and 8, and hymba-1.5b's
+#: KV 5
+SPLIT_POOLS = [(8, 20, 64, 16), (8, 16, 128, 16), (32, 16, 64, 16),
+               (32, 8, 64, 16), (8, 5, 128, 16)]
+
+
+def _pool_call(rows, kv, pages_max, page, width, d=8):
+    """Pages of a pool of ``rows`` rows (meta: shapes only) and the block
+    table of a call packing its first ``width`` rows (slot s owns pages
+    s*pages_max + j)."""
+    k_pages = torch.empty(rows * pages_max, page, kv, d, device="meta")
+    tables = (torch.arange(width)[:, None] * pages_max
+              + torch.arange(pages_max)[None, :]).to(torch.int32)
+    return k_pages, tables
+
+
 class TestPagedSplitPlan:
-    """The host's split plan (``ops.pages_per_split``, from the shapes
-    alone) and the pages each split covers (``ops.split_ranges``, as the
-    kernel computes them)."""
+    """The host's split plan (``ops.split_plan``: ``ops.pages_per_split`` of
+    the page pool's rows, never of the rows a call packs) and the pages
+    each split covers (``ops.split_ranges``, as the kernel computes
+    them)."""
 
     @pytest.mark.parametrize("length", SPLIT_LENGTHS)
     @pytest.mark.parametrize("pps", [1, 3, 4, 64, 100])
@@ -384,13 +403,61 @@ class TestPagedSplitPlan:
         (8, 16, 64, 16), (1, 16, 64, 16), (4, 8, 64, 16), (64, 8, 256, 16),
         (256, 32, 64, 16), (2, 2, 3, 8), (3, 4, 40, 8), (1, 1, 1, 1)])
     def test_pages_per_split(self, b, kv, pages_max, page):
+        """``b`` is the pool's rows: the grid of every row the pool holds,
+        each full, stays within ``GRID_CAP`` blocks unless a split is the
+        whole row; ``split_plan`` gives the same plan for that pool."""
         pps = pa_ops.pages_per_split(b, kv, pages_max, page)
         splits = -(-pages_max // pps)
         assert 1 <= pps <= pages_max
         assert pps == pages_max or pps * page >= pa_ops.SPLIT_TOKENS
         assert pps == pages_max or b * kv * splits <= pa_ops.GRID_CAP
+        assert pa_ops.split_plan(*_pool_call(b, kv, pages_max, page,
+                                             1)) == pps
         if (b, kv, pages_max, page) == (8, 16, 64, 16):
             assert pps == 4      # the decode timing shape: 64-token splits
+
+    @pytest.mark.parametrize("rows,kv,pages_max,page", SPLIT_POOLS)
+    def test_plan_is_the_same_at_every_width(self, rows, kv, pages_max,
+                                             page):
+        """Calls packing 1 ... ``rows`` rows of one pool get one plan, the
+        pool's."""
+        want = pa_ops.pages_per_split(rows, kv, pages_max, page)
+        plans = [pa_ops.split_plan(*_pool_call(rows, kv, pages_max, page, w))
+                 for w in range(1, rows + 1)]
+        assert plans == [want] * rows
+
+    @pytest.mark.parametrize("dt", list(DTYPES))
+    def test_rows_bit_equal_across_widths(self, dt):
+        """The CUDA kernel's arithmetic, emulated with the helper's plan over
+        an 8-row KV-20 pool (qwen1.5-4b's KV heads, narrow D), gives each
+        row the same bits in calls packing 1 ... 8 rows; the whole pool is
+        held to the Pallas kernel in interpret mode (2e-4 in f32, 3e-2 in
+        bf16).  Lengths cross the plan's 128-token splits."""
+        rows, h, kv, d, page, pages_max = 8, 20, 20, 32, 16, 64
+        lengths = [1, 127, 128, 129, 257, 384, 700, 1024]
+        jargs, targs = _paged_case(np.random.default_rng(26), dt, rows, h,
+                                   kv, d, page, pages_max,
+                                   rows * pages_max, lengths=lengths)
+        q, k_pages, v_pages, _, ln = targs
+        tables = _pool_call(rows, kv, pages_max, page, rows, d=d)[1]
+        pps = pa_ops.split_plan(k_pages, tables)
+        assert pps * page == 128
+        out = {}
+        for width in range(1, rows + 1):
+            for start in range(0, rows, width):
+                call = [(start + i) % rows for i in range(width)]
+                got = _paged_split_emulation(
+                    q[call], k_pages, v_pages, tables[call], ln[call],
+                    pa_ops.split_plan(k_pages, tables[call]))
+                for i, s in enumerate(call):
+                    if s in out:
+                        assert torch.equal(got[i], out[s]), (s, width)
+                    else:
+                        out[s] = got[i]
+        whole = torch.stack([out[s] for s in range(rows)])
+        jargs = jargs[:3] + (jnp.asarray(tables.numpy()), jargs[4])
+        _close(paged_attention_kernel(*jargs, interpret=True),
+               whole.to(DTYPES[dt][2]), DTYPES[dt][3])
 
 
 # tests/test_kernels.py's mLSTM sweep: (b, s, h, dk, dv, chunk)

@@ -52,11 +52,17 @@ def test_paged_head_dims_match_the_cuda_switch():
 
 
 def test_split_plan_unchanged_for_nemotron():
-    """The split plan depends on B, KV, pages_max and page only: at
-    nemotron's decode (8 rows, KV 8, 64 pages of 16) it is 4 pages, as for
-    every B <= 8 (the token invariant on the card rests on it)."""
+    """The split plan depends on the pool's rows, KV, pages_max and page
+    only: at nemotron's decode (a pool of 8 rows, KV 8, 64 pages of 16) it
+    is 4 pages, as for every pool of up to 8 rows, and every call on the
+    8-row pool gets it whatever rows it packs (the token invariant on the
+    card rests on it)."""
+    for rows in range(1, 9):
+        assert pa_ops.pages_per_split(rows, 8, 64, 16) == 4
+    k_pages = torch.empty(8 * 64, 16, 8, 192, device="meta")
     for b in range(1, 9):
-        assert pa_ops.pages_per_split(b, 8, 64, 16) == 4
+        tables = torch.zeros(b, 64, dtype=torch.int32)
+        assert pa_ops.split_plan(k_pages, tables) == 4
 
 
 @pytest.mark.parametrize("b,h,kv,d,page,pages_max,n_pages", NEMOTRON_SHAPES)
