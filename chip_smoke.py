@@ -18,9 +18,13 @@ dequant kernel; the quantized restores again under seeded restore
 corruption, pipelined and on the sync-restore rung), serves full-width
 olmo-1b from a two-replica confidential cluster (``repro_torch.cluster``)
 under seeded bridge faults (fault-free twice, transient faults, the
-ladder ablation) after a probe of whether a row's logits depend on the
-decode width (probed too at max_len 2048, for qwen1.5-4b, and, as a
-report, for 32 slots), writes full-width olmo-1b's weights as a sharded checkpoint
+ladder ablation) after a probe of whether a row's logits depend on how
+many rows step beside it, through the engine's executed-width call
+(probed too at max_len 2048 and with 32 slots, and for qwen1.5-4b,
+xlstm-1.3b, hymba-1.5b, deepseek-moe-16b and deepseek-v2-lite-16b; the
+raw model at 32 slots as a report), serves qwen3p6-27b with 32 slots
+to 48 requests of 1024-token prompts (sync packed, worker packed and
+sync dense: every token equal), writes full-width olmo-1b's weights as a sharded checkpoint
 and loads them back through the port's ``PooledLoader`` (full width,
 int8 weight-only pricing, TP 4; the loaded model must serve the in-memory
 model's tokens; pageable and page-locked uploads timed beside it), serves
@@ -70,7 +74,7 @@ qwen3p6-27b's, qwen3-32b's and nemotron-4-340b's head layouts; flash at
 deepseek-v2-lite's
 D = 192, at hymba's windowed layout and at seamless-m4t-medium's cross
 attention and encoder).  It prints
-the card's name and power limit, one ``{"kernels": [...]}`` line, and as
+the card's name, power limit and confidential-computing state, one ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the repository's ``src`` beside it, it exits non-zero and prints
 no result.
@@ -78,6 +82,7 @@ no result.
 
 from __future__ import annotations
 
+import gc
 import io
 import json
 import math
@@ -151,11 +156,18 @@ PAGED_WIDTHS = dict(
                 ("seamless-m4t-medium", 16, 16, 64)),
     pools=((8, 64), (8, 128), (32, 64)), page=16,
     widths=(1, 4, 5, 6, 7, 8, 17, 32))
-#: model-level width probes beside the chaos phase's: olmo-1b at
-#: ``long_len`` and qwen1.5-4b at MAIN's length, widths 1 ... MAIN's
-#: max_batch (rows must be width-independent), and olmo-1b with ``wide``
-#: slots at MAIN's length over ``wide_widths`` (a report, not a gate)
+#: engine width probes beside the chaos phase's: olmo-1b at ``long_len``
+#: and qwen1.5-4b, xlstm-1.3b, hymba-1.5b, deepseek-moe-16b and
+#: deepseek-v2-lite-16b at MAIN's length, widths 1 ... MAIN's max_batch,
+#: and olmo-1b with ``wide`` slots at MAIN's length over ``wide_widths``
+#: (rows must be width-independent); the raw model at the wide widths
+#: beside it (a report, not a gate)
 PROBES = dict(long_len=2048, wide=32, wide_widths=(1, 8, 17, 32))
+#: more than 8 rows on the paper's model (``phase_wide``, qwen3p6-27b):
+#: its 1k-token prompts (``benchmarks/workloads.py``'s 1k-in) with short
+#: outputs (request i greedy for 8 + 8 * (i % 5) tokens), 48 requests
+#: through 32 slots, so the stepping rows shrink and regrow
+WIDE = dict(max_batch=32, max_len=2048, n_requests=48, prompt_len=1024)
 #: the TP phase: ``benchmarks/bench_tp.py``'s guardrail at full width (a
 #: one-replica cluster, partition of 8; 8 greedy requests, each a shared
 #: prompt of ``prompt_len`` plus ``own_len`` tokens of its own, with
@@ -285,6 +297,13 @@ def phase_card() -> str:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
     print(card)
+    # the card's confidential-computing state, as the tool reports it
+    # (its own output and exit code; an unsupported query says so there)
+    cc = subprocess.run(["nvidia-smi", "conf-compute", "-f"],
+                        capture_output=True, text=True, timeout=60)
+    print(f"confidential computing: nvidia-smi conf-compute -f exited "
+          f"{cc.returncode}; its output:")
+    print((cc.stdout + cc.stderr).rstrip("\n") or "(none)")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"(count {torch.cuda.device_count()})")
@@ -1469,133 +1488,168 @@ def _main_prompts(cfg, n: int) -> list:
 
 
 def phase_width_probes(model, max_lens: tuple, wide: bool = False) -> dict:
-    """``model``'s width probes at MAIN's max_batch and each of
-    ``max_lens`` over widths 1 ... max_batch, on MAIN's prompts: every row
-    must be width-independent.  With ``wide``, also PROBES' wide slots at
-    MAIN's max_len over its wide widths, a report and not a gate: above 8
-    rows a projection's GEMM may run another algorithm for another row
-    count, and the probe names the first op whose output differs.
-    Returns the gated probes by max_len."""
-    probes = {}
-    for max_len in max_lens:
-        probe = _width_probe(model, _main_prompts(model.cfg,
-                                                  MAIN["max_batch"]),
-                             MAIN["max_batch"], max_len)
-        check(probe["independent"], f"width probe {model.cfg.name} at "
-              f"max_len {max_len}: rows depend on the width "
+    """``model``'s width probes through the engine (``_width_probe``) at
+    MAIN's max_batch and each of ``max_lens`` over widths 1 ... max_batch,
+    on MAIN's prompts: every row must be width-independent and every pad
+    row equal to its original.  With ``wide``, also PROBES' wide slots at
+    MAIN's max_len over its wide widths, gated the same way, and beside it
+    the raw model at those widths as a report: above 8 rows a projection's
+    GEMM runs another algorithm for another row count, and the report
+    names the first op whose output differs.  Returns the gated probes by
+    max_len (the wide one under ``"wide"``)."""
+    def gated(n_slots, max_len, **kw):
+        probe = _width_probe(model, _main_prompts(model.cfg, n_slots),
+                             n_slots, max_len, **kw)
+        check(probe["independent"], f"width probe {model.cfg.name}, "
+              f"{n_slots} slots at max_len {max_len}: rows depend on the "
+              f"width or a pad row differs from its original "
               f"({probe['first_difference']})")
-        probes[max_len] = probe
+        return probe
+
+    probes = {max_len: gated(MAIN["max_batch"], max_len)
+              for max_len in max_lens}
     if wide:
+        probes["wide"] = gated(PROBES["wide"], MAIN["max_len"],
+                               widths=PROBES["wide_widths"])
         _width_probe(model, _main_prompts(model.cfg, PROBES["wide"]),
                      PROBES["wide"], MAIN["max_len"],
-                     widths=PROBES["wide_widths"])
+                     widths=PROBES["wide_widths"], via_engine=False)
     torch.cuda.empty_cache()
     return probes
 
 
-def phase_main(model, expected, probe: dict = None) -> dict:
-    """Serve MAIN's requests under each policy; ``expected(stats, n_req)``
-    gives each kernel's launch count for one run.  Each token is recorded
-    with the width of the forward that made it and that forward's top-2
-    gap (``_record_widths``), and the async and worker runs' tokens are
-    held to the sync run's by ``_token_criterion`` against ``probe`` (the
-    model's width probe at MAIN's shape; run here only if tokens differ
-    and none was given).  Returns the launches of the three runs together,
-    by kernel."""
-    from repro_torch.core.policy import SchedulingPolicy
+def _serve_run(model, prompts: list, new_tokens: list, *, policy,
+               max_batch: int, max_len: int, packed: bool = True) -> dict:
+    """Serve ``prompts`` (request i greedy for ``new_tokens[i]`` tokens)
+    on a fresh engine of ``max_batch`` slots at ``max_len`` under
+    ``policy``, CC on (``packed`` False: the dense step).  Each token is
+    recorded with its forward's widths and top-2 gap (``_record_widths``).
+    Checks every request finished with its tokens, all in the vocab,
+    finite logits and a lawful tape.  Returns the stats, the tokens and
+    records by request, the kernel launches, the run's and the prefills'
+    host walls, the stepping rows of each decode step and the tape's
+    crossings."""
+    import dataclasses
+    from repro_torch.core.policy import cc_aware_defaults
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.sampler import SamplingParams
     from repro_torch.trace import TraceRecorder, check_tape
 
-    cfg = model.cfg
-    vocab = cfg.vocab_size
-    prompts = _main_prompts(cfg, len(MAIN["prompt_lens"]))
+    vocab = model.cfg.vocab_size
     counters = _counters()
-    launches = dict.fromkeys(counters, 0)
+    engine = ServingEngine(model, max_batch=max_batch, max_len=max_len,
+                           policy=policy, cc_on=True, seed=0, device=DEVICE,
+                           defaults=dataclasses.replace(
+                               cc_aware_defaults(True), packed_decode=packed))
+    finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+    prefill_s = [0.0]
+    inner_prefill, inner_decode = model.prefill, model.decode_step
+    records, stash = {}, {}
+
+    def prefill(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner_prefill(*a, **k)
+        finite.logical_and_(torch.isfinite(out[0]).all())
+        stash["gap"] = _top2_gap(out[0])
+        torch.cuda.synchronize()
+        prefill_s[0] += time.perf_counter() - t0
+        return out
+
+    def decode_step(*a, **k):
+        out = inner_decode(*a, **k)
+        finite.logical_and_(torch.isfinite(out[0]).all())
+        stash["gap"] = _top2_gap(out[0])
+        return out
+
+    model.prefill, model.decode_step = prefill, decode_step
+    _record_widths(engine, records, stash)
+    recorder = TraceRecorder(engine.gateway, policy=policy.value,
+                             label=f"chip-smoke-{policy.value}")
+    for i, p in enumerate(prompts):
+        engine.submit(Request(f"r{i}", prompt=p, sampling=SamplingParams(
+            max_new_tokens=new_tokens[i])))
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with recorder:
+            stats = engine.run()
+        torch.cuda.synchronize()
+    finally:
+        engine.close()
+        del model.prefill, model.decode_step
+        # the record patches hold the engine: drop them with its caches
+        del engine._prefill_into_slot, engine._consume
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in counters.items()}
+
+    label = f"{model.cfg.name} {policy.value}{'' if packed else ' dense'}"
+    check(stats["finished"] == len(prompts), f"{label}: "
+          f"{stats['finished']} of {len(prompts)} requests finished")
+    for r in engine.finished:
+        want = new_tokens[int(r.request_id[1:])]
+        check(len(r.output_tokens) == want, f"{label}: {r.request_id} has "
+              f"{len(r.output_tokens)} tokens, not {want}")
+        check(all(0 <= t < vocab for t in r.output_tokens),
+              f"{label}: token outside the vocab")
+    check(bool(finite), f"{label}: non-finite logits")
+    report = check_tape(recorder.tape())
+    check(report.ok, f"{label}: tape violates the bridge law:\n"
+                     f"{report.format()}")
+    return dict(stats=stats, counts=counts, wall=wall, prefill_s=prefill_s[0],
+                tokens={r.request_id: r.output_tokens
+                        for r in engine.finished},
+                records=records, rows=[t.active for t in engine.trace],
+                crossings=recorder.tape().n_crossings(),
+                profile=engine.bridge.profile.name)
+
+
+def _decode_rate(run: dict, n_req: int) -> str:
+    """The run's decode tokens over its host wall less its prefills'."""
+    tokens = run["stats"]["total_tokens"] - n_req
+    wall = run["wall"] - run["prefill_s"]
+    return (f"run wall {run['wall']:.4f} s, prefill wall "
+            f"{run['prefill_s']:.4f} s, decode {tokens} tokens in "
+            f"{wall:.4f} s = {tokens / wall:.1f} decode tok/s")
+
+
+def phase_main(model, expected, probe: dict = None) -> dict:
+    """Serve MAIN's requests under each policy (``_serve_run``);
+    ``expected(stats, n_req)`` gives each kernel's launch count for one
+    run.  The async and worker runs' tokens are held to the sync run's by
+    ``_token_criterion`` against ``probe`` (the model's engine width probe
+    at MAIN's shape; run here only if tokens differ and none was given).
+    Returns the launches of the three runs together, by kernel."""
+    from repro_torch.core.policy import SchedulingPolicy
+
+    cfg = model.cfg
+    prompts = _main_prompts(cfg, len(MAIN["prompt_lens"]))
+    n_req = len(prompts)
+    launches = dict.fromkeys(_counters(), 0)
     runs = {}
     for policy in (SchedulingPolicy.SYNC_DRAIN, SchedulingPolicy.ASYNC_OVERLAP,
                    SchedulingPolicy.WORKER_DRAIN):
-        engine = ServingEngine(model, max_batch=MAIN["max_batch"],
-                               max_len=MAIN["max_len"], policy=policy,
-                               cc_on=True, seed=0, device=DEVICE)
-        finite = torch.ones((), dtype=torch.bool, device=DEVICE)
-        prefill_s = [0.0]
-        inner_prefill, inner_decode = model.prefill, model.decode_step
-        records, stash = {}, {}
-
-        def prefill(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = inner_prefill(*a, **k)
-            finite.logical_and_(torch.isfinite(out[0]).all())
-            stash["gap"] = _top2_gap(out[0])
-            torch.cuda.synchronize()
-            prefill_s[0] += time.perf_counter() - t0
-            return out
-
-        def decode_step(*a, **k):
-            out = inner_decode(*a, **k)
-            finite.logical_and_(torch.isfinite(out[0]).all())
-            stash["gap"] = _top2_gap(out[0])
-            return out
-
-        model.prefill, model.decode_step = prefill, decode_step
-        _record_widths(engine, records, stash)
-        recorder = TraceRecorder(engine.gateway, policy=policy.value,
-                                 label=f"chip-smoke-{policy.value}")
-        for i, p in enumerate(prompts):
-            engine.submit(Request(f"r{i}", prompt=p, sampling=SamplingParams(
-                max_new_tokens=MAIN["new_tokens"])))
-        for fn in counters.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            with recorder:
-                stats = engine.run()
-            torch.cuda.synchronize()
-        finally:
-            engine.close()
-            del model.prefill, model.decode_step
-        wall = time.perf_counter() - t0
-        counts = {name: fn.launches for name, fn in counters.items()}
+        run = _serve_run(model, prompts, [MAIN["new_tokens"]] * n_req,
+                         policy=policy, max_batch=MAIN["max_batch"],
+                         max_len=MAIN["max_len"])
+        stats, counts = run["stats"], run["counts"]
         for name, n in counts.items():
             launches[name] += n
-
-        n_req = len(prompts)
-        check(stats["finished"] == n_req, f"{policy.value}: "
-              f"{stats['finished']} of {n_req} requests finished")
-        for r in engine.finished:
-            check(len(r.output_tokens) == MAIN["new_tokens"],
-                  f"{policy.value}: {r.request_id} has "
-                  f"{len(r.output_tokens)} tokens")
-            check(all(0 <= t < vocab for t in r.output_tokens),
-                  f"{policy.value}: token outside the vocab")
-        check(bool(finite), f"{policy.value}: non-finite logits")
         want = expected(stats, n_req)
         check(counts == want, f"{policy.value}: kernel launches {counts}, "
                               f"expected {want}")
-        report = check_tape(recorder.tape())
-        check(report.ok, f"{policy.value}: tape violates the bridge law:\n"
-                         f"{report.format()}")
-        decode_tokens = stats["total_tokens"] - n_req
-        decode_wall = wall - prefill_s[0]
         print(f"main path {cfg.name} {policy.value}: {n_req} requests, "
               f"{stats['total_tokens']} tokens, {stats['steps']} decode steps; "
-              f"launches {counts}; tape ok "
-              f"({recorder.tape().n_crossings()} crossings)")
-        print(f"  modelled (virtual clock, {engine.bridge.profile.name} bridge "
+              f"launches {counts}; tape ok ({run['crossings']} crossings)")
+        print(f"  modelled (virtual clock, {run['profile']} bridge "
               f"profile, CC on): virtual_time_s {stats['virtual_time_s']!r} "
               f"bridge_time_s {stats['bridge_time_s']!r} compute_time_s "
               f"{stats['compute_time_s']!r} crossings {stats['crossings']} "
               f"mean_ttft_s {stats['mean_ttft_s']!r}")
-        print(f"  measured on the card: run wall {wall:.4f} s, prefill wall "
-              f"{prefill_s[0]:.4f} s, decode {decode_tokens} tokens in "
-              f"{decode_wall:.4f} s = {decode_tokens / decode_wall:.1f} "
-              f"decode tok/s")
-        runs[policy.value] = dict(tokens={r.request_id: r.output_tokens
-                                          for r in engine.finished},
-                                  records=records)
+        print(f"  measured on the card: {_decode_rate(run, n_req)}")
+        runs[policy.value] = run
     base, others = runs.pop("sync"), runs
     if probe is None and any(r["tokens"] != base["tokens"]
                              for r in others.values()):
@@ -1606,13 +1660,86 @@ def phase_main(model, expected, probe: dict = None) -> dict:
                  for name, run in others.items()}
     same = sum(all(r["tokens"][rid] == want for r in others.values())
                for rid, want in base["tokens"].items())
-    widths = sorted({w for recs in base["records"].values() for w, _ in recs
-                     if w})
+    widths = sorted({r[:2] for recs in base["records"].values()
+                     for r in recs if r[0]})
     print(f"main path {cfg.name} tokens across policies: {same} of "
           f"{len(base['tokens'])} requests equal under sync, async and "
-          f"worker; explained by width {explained}; decode widths in the "
-          f"sync run {widths}; rows width-independent "
+          f"worker; explained by width {explained}; decode widths (stepping, "
+          f"executed rows) in the sync run {widths}; rows width-independent "
           f"{'not probed' if probe is None else probe['independent']}")
+    return launches
+
+
+def phase_wide(model) -> dict:
+    """More than 8 rows on the paper's model with its 1k-token prompts
+    (``WIDE``): 48 greedy requests through 32 slots, so the stepping rows
+    shrink as requests finish and regrow as queued ones are admitted,
+    served sync packed, worker packed and sync dense.  Every request's
+    tokens must be equal across the three, with no width criterion, and
+    the packed runs must have stepped at most 8 and at least 17 rows.
+    Then one 32-row decode step's host and device time (``_profile_steps``)
+    and the peak memory.  Returns the launches of the three runs."""
+    from repro_torch.core.policy import SchedulingPolicy
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import SamplingParams
+
+    cfg = model.cfg
+    n_req, slots = WIDE["n_requests"], WIDE["max_batch"]
+    new_tokens = [8 + 8 * (i % 5) for i in range(n_req)]
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, cfg.vocab_size, (WIDE["prompt_len"],),
+                             generator=gen).tolist() for _ in range(n_req)]
+    expected = attention_launches(cfg)
+    launches = dict.fromkeys(_counters(), 0)
+    runs = {}
+    for name, policy, packed in (
+            ("sync packed", SchedulingPolicy.SYNC_DRAIN, True),
+            ("worker packed", SchedulingPolicy.WORKER_DRAIN, True),
+            ("sync dense", SchedulingPolicy.SYNC_DRAIN, False)):
+        run = _serve_run(model, prompts, new_tokens, policy=policy,
+                         max_batch=slots, max_len=WIDE["max_len"],
+                         packed=packed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = expected(run["stats"], n_req)
+        check(run["counts"] == want, f"wide {name}: kernel launches "
+              f"{run['counts']}, expected {want}")
+        for k, n in run["counts"].items():
+            launches[k] += n
+        executed = sorted({r[1] for recs in run["records"].values()
+                           for r in recs if r[0]})
+        print(f"wide {cfg.name} {name} ({n_req} requests of "
+              f"{WIDE['prompt_len']} tokens, {slots} slots at max_len "
+              f"{WIDE['max_len']}, CC on): {run['stats']['total_tokens']} "
+              f"tokens, {run['stats']['steps']} decode steps, stepping rows "
+              f"min {min(run['rows'])} max {max(run['rows'])}, executed "
+              f"rows {executed}; launches {run['counts']}; tape ok "
+              f"({run['crossings']} crossings); {_decode_rate(run, n_req)}")
+        if packed:
+            check(min(run["rows"]) <= 8 and max(run["rows"]) >= 17,
+                  f"wide {name}: stepping rows {min(run['rows'])}-"
+                  f"{max(run['rows'])}, not both <= 8 and >= 17")
+        runs[name] = run
+    base = runs["sync packed"]["tokens"]
+    same = {name: sum(r["tokens"][rid] == want for rid, want in base.items())
+            for name, r in runs.items()}
+    print(f"wide {cfg.name} tokens: requests equal to sync packed's {same} "
+          f"of {n_req}")
+    check(all(r["tokens"] == base for r in runs.values()),
+          f"wide {cfg.name}: tokens differ across sync packed, worker "
+          f"packed and sync dense ({same} of {n_req} equal)")
+
+    engine = ServingEngine(model, max_batch=slots, max_len=WIDE["max_len"],
+                           policy=SchedulingPolicy.SYNC_DRAIN, cc_on=True,
+                           device=DEVICE)
+    for i in range(slots):
+        engine.submit(Request(f"p{i}", prompt=prompts[i],
+                              sampling=SamplingParams(max_new_tokens=12)))
+    _profile_steps(engine, f"profile {cfg.name} wide: decode step of "
+                           f"{slots} rows (prompts of {WIDE['prompt_len']})")
+    print(f"wide {cfg.name}: peak allocated {torch.cuda.max_memory_allocated()}"
+          f" bytes of {torch.cuda.get_device_properties(0).total_memory}")
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2382,15 +2509,8 @@ def phase_vlm(model) -> dict:
 
 
 def phase_profile(model) -> None:
-    """Where a full-width decode step's time goes: torch.profiler over four
-    sync-policy decode steps of 8 resident requests, after four timed
-    without it.  Device busy time is
-    the sum of the device-side events (kernels and copies; one stream, so
-    they do not overlap); host-side operator rows, which repeat their
-    kernels' time, are left out.  The idle share is what the device leaves
-    of the unprofiled step's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Where a full-width decode step's time goes: ``_profile_steps`` over
+    the sync-policy decode steps of 8 resident requests."""
     from repro_torch.core.policy import SchedulingPolicy
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.sampler import SamplingParams
@@ -2403,7 +2523,26 @@ def phase_profile(model) -> None:
         engine.submit(Request(f"p{i}", prompt=torch.randint(
             1, model.cfg.vocab_size, (n,), generator=gen).tolist(),
             sampling=SamplingParams(max_new_tokens=12)))
-    steps = 4
+    prof = _profile_steps(engine, f"profile {model.cfg.name}: decode step "
+                                  f"({len(MAIN['prompt_lens'])} rows)")
+    if prof and prof["paged_us"]:
+        PROFILED[model.cfg.name] = dict(lengths=prof["lengths"],
+                                        paged_us=prof["paged_us"])
+
+
+def _profile_steps(engine, label: str, steps: int = 4):
+    """torch.profiler over ``steps`` decode steps of ``engine`` (whose
+    submitted requests all fit its slots and outlast ``2 + 2 * steps``
+    steps), after two untimed steps (admissions, prefills, the first
+    decode) and ``steps`` timed without it; closes the engine.  Device
+    busy time is the sum of the device-side events (kernels and copies;
+    one stream, so they do not overlap); host-side operator rows, which
+    repeat their kernels' time, are left out.  The idle share is what the
+    device leaves of the unprofiled step's wall time.  Returns the paged
+    kernel's launches (us, sorted) and the middle profiled step's lengths;
+    None if the profiler saw no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     lengths = []                      # the paged kernel's, per profiled step
     try:
         engine.step()                 # admissions, prefills, first decode
@@ -2435,12 +2574,10 @@ def phase_profile(model) -> None:
     if not events:
         print("profile: the profiler saw no device events; device busy "
               "time not measured")
-        return
+        return None
     busy = sum(dev_us(e) for e in events)
-    print(f"profile {model.cfg.name}: decode step "
-          f"({len(MAIN['prompt_lens'])} rows) "
-          f"{plain_us / steps:.1f} us on the host clock without the "
-          f"profiler, {wall_us / steps:.1f} us with it; device busy "
+    print(f"{label} {plain_us / steps:.1f} us on the host clock without "
+          f"the profiler, {wall_us / steps:.1f} us with it; device busy "
           f"{busy / steps:.1f} us per step; idle share "
           f"{1 - busy / plain_us:.4f} (without the profiler)")
     for e in sorted(events, key=dev_us, reverse=True)[:8]:
@@ -2449,13 +2586,12 @@ def phase_profile(model) -> None:
     paged = sorted(e.time_range.elapsed_us() for e in prof.events()
                    if e.device_type == DeviceType.CUDA and "paged" in e.name)
     if paged:
-        PROFILED[model.cfg.name] = dict(lengths=lengths[steps // 2],
-                                        paged_us=paged)
         print(f"  paged kernel per launch in the profiled steps: "
               f"{len(paged)} launches, min {paged[0]:.1f} median "
               f"{paged[len(paged) // 2]:.1f} mean "
               f"{sum(paged) / len(paged):.1f} max {paged[-1]:.1f} us; "
               f"lengths per step {lengths}")
+    return dict(paged_us=paged, lengths=lengths[steps // 2])
 
 
 def _restore_run(model, kv_quant: str, blocks: list, shared: list,
@@ -2840,24 +2976,31 @@ def _record_ops(record: list):
 
 
 def _width_probe(model, prompts: list, max_batch: int, max_len: int,
-                 widths=None) -> dict:
+                 widths=None, via_engine: bool = True) -> dict:
     """``max_batch`` resident rows (one per prompt, after one decode step
-    of an engine of ``max_batch`` slots at ``max_len``) through
-    ``model.decode_step`` at each of ``widths`` (default 1 ...
-    ``max_batch``): the calls of width w take rows s, ..., s+w-1 modulo
-    the rows (s = 0, w, 2w, ...), so every row runs at every width; and
-    dense (every slot, the second half as the dense step's padding); each
-    call on its own copy of the cache.  Returns whether every row's logits
-    are bit-equal across the widths it ran at, the largest difference
-    against the widest call, by width, and the top-2 gaps there.  Where a
-    row differs, the first differing call is run again beside the widest
-    with ``_record_ops`` and the first block and op whose output for that
-    row differs is named."""
+    of an engine of ``max_batch`` slots at ``max_len``) stepped in calls
+    of each of ``widths`` rows (default 1 ... ``max_batch``): the calls of
+    width w take rows s, ..., s+w-1 modulo the rows (s = 0, w, 2w, ...),
+    so every row runs at every width; and dense (every slot, the second
+    half as the dense step's padding, as ``_step_dense`` calls the
+    model); each call on its own copy of the cache.  ``via_engine``: each
+    packed call is the engine's own (``ServingEngine._decode_packed``,
+    executed at ``_bucket``'s width, pad rows copying the first stepping
+    row), and every pad row's logits must be bit-equal to the row it
+    copies; otherwise ``model.decode_step`` runs at the call's width (the
+    raw model, a report).  Returns whether every row's logits are
+    bit-equal across the widths it ran at (and, via the engine, every pad
+    row equal to its original), the largest difference against the widest
+    call, by width, and the top-2 gaps there.  Where a row differs, the
+    first differing call is run again beside the widest with
+    ``_record_ops`` and the first block and op whose output for that row
+    differs is named."""
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.sampler import SamplingParams
     widths = list(widths or range(1, max_batch + 1))
     engine = ServingEngine(model, max_batch=max_batch, max_len=max_len,
                            cc_on=True, seed=0, device=DEVICE)
+    pads_equal = [True]
     try:
         for i, p in enumerate(prompts[:max_batch]):
             engine.submit(Request(f"p{i}", prompt=p,
@@ -2867,24 +3010,35 @@ def _width_probe(model, prompts: list, max_batch: int, max_len: int,
         check(len(slots) == max_batch, "width probe: not all rows resident")
         tokens = {s: engine.active[s].output_tokens[-1] for s in slots}
         index = {s: engine.active[s].index for s in slots}
+        saved = engine.caches
 
         def run(rows, width, record=None):
             """Rows ``rows`` at their slots in a call of ``width`` rows
-            (the rest, if any, padding at their slots): {slot: logits}, or
-            with ``record`` {label: {slot: output row}} of ``_record_ops``."""
-            pad = [s for s in slots if s not in rows][:width - len(rows)]
-            call = sorted(list(rows) + pad)
+            (the rest, if any, padding at their slots), or through the
+            engine when ``width`` is None: {slot: logits}, or with
+            ``record`` {label: {slot: output row}} of ``_record_ops``."""
+            if width is None:
+                call, rows = list(range(max_batch)), sorted(rows)
+                known = rows
+            else:
+                pad = [s for s in slots if s not in rows][:width - len(rows)]
+                call = sorted(list(rows) + pad)
+                known = call
             tok = torch.tensor([[tokens[s] if s in rows else 0]
-                                for s in call], dtype=torch.int32,
+                                for s in known], dtype=torch.int32,
                                device=DEVICE)
-            idx = torch.tensor([index[s] if s in rows else 0 for s in call],
+            idx = torch.tensor([index[s] if s in rows else 0 for s in known],
                                dtype=torch.int32, device=DEVICE)
-            sl = torch.tensor(call, dtype=torch.int32, device=DEVICE)
+            sl = torch.tensor(known, dtype=torch.int32, device=DEVICE)
             ops = []
             undo = _record_ops(ops) if record else None
             try:
-                logits, _ = model.decode_step(_clone_tree(engine.caches),
-                                              tok, idx, sl, max_len=max_len)
+                if width is None:
+                    engine.caches = _clone_tree(saved)
+                    logits = engine._decode_packed(tok, idx, sl)
+                else:
+                    logits, _ = model.decode_step(_clone_tree(saved), tok,
+                                                  idx, sl, max_len=max_len)
             finally:
                 if undo:
                     undo()
@@ -2893,16 +3047,22 @@ def _width_probe(model, prompts: list, max_batch: int, max_len: int,
                                 if s in rows} for label, out in ops
                         if out.shape[:1] == (len(call),)}
             lg = logits.reshape(len(call), -1).float()
+            if width is None:
+                pads_equal[0] &= all(torch.equal(lg[p], lg[rows[0]])
+                                     for p in call if p not in rows)
             return {s: lg[j] for j, s in enumerate(call) if s in rows}
 
         def cyclic(w):
             return [[slots[(i + j) % max_batch] for j in range(w)]
                     for i in range(0, max_batch, w)]
 
+        def width_of(w):
+            return None if via_engine else w
+
         wide = max(widths)
         full = {}
         for rows in cyclic(wide):
-            full.update(run(rows, wide))
+            full.update(run(rows, width_of(wide)))
         half = slots[:max_batch // 2]
         configs = {f"packed {w}": (w, cyclic(w)) for w in widths if w != wide}
         configs[f"dense (rows {half[0]}-{half[-1]}, "
@@ -2911,19 +3071,21 @@ def _width_probe(model, prompts: list, max_batch: int, max_len: int,
                                           None)
         for name, (w, calls) in configs.items():
             diff = 0.0
+            call_w = w if name.startswith("dense") else width_of(w)
             for rows in calls:
-                for s, lg in run(rows, w).items():
+                for s, lg in run(rows, call_w).items():
                     diff = max(diff, (lg - full[s]).abs().max().item())
                     if not torch.equal(lg, full[s]):
                         equal[s] = False
-                        first = first or (s, w, rows)
+                        first = first or (s, call_w, w, rows)
             by_config[name] = diff
             worst = max(worst, diff)
         where = None
         if first is not None:
-            s, w, mine = first
+            s, call_w, w, mine = first
             theirs = next(r for r in cyclic(wide) if s in r)
-            a, b = run(theirs, wide, record=True), run(mine, w, record=True)
+            a = run(theirs, width_of(wide), record=True)
+            b = run(mine, call_w, record=True)
             where = "no recorded op differs"
             for label in (x for x in a if x in b):
                 if not torch.equal(a[label][s], b[label][s]):
@@ -2936,12 +3098,16 @@ def _width_probe(model, prompts: list, max_batch: int, max_len: int,
     finally:
         engine.close()
     gaps = torch.stack([_top2_gap(full[s][None])[0] for s in slots])
-    out = dict(independent=all(equal.values()), max_diff=worst,
-               rows_equal=[equal[s] for s in slots], by_config=by_config,
-               gaps=gaps.tolist(), first_difference=where)
+    out = dict(independent=all(equal.values()) and pads_equal[0],
+               max_diff=worst, rows_equal=[equal[s] for s in slots],
+               by_config=by_config, gaps=gaps.tolist(),
+               first_difference=where, pads_equal=pads_equal[0])
     per_config = ", ".join(f"{k} {v!r}" for k, v in by_config.items())
+    mode = (f"through the engine, executed at {engine._bucket(1)} rows; pad "
+            f"rows equal their originals {pads_equal[0]}"
+            if via_engine else "the raw model at each width")
     print(f"width probe ({model.cfg.name}, {max_batch} slots at max_len "
-          f"{max_len}, resident rows at lengths "
+          f"{max_len}, {mode}; resident rows at lengths "
           f"{[index[s] + 1 for s in slots]}, widths {widths} and dense): "
           f"rows bit-equal across widths {sum(out['rows_equal'])} of "
           f"{max_batch}; independent {out['independent']}; largest |logit "
@@ -2954,21 +3120,24 @@ def _width_probe(model, prompts: list, max_batch: int, max_len: int,
 
 def _record_widths(engine, records: dict, stash: dict) -> None:
     """Patch ``engine`` so each token it makes is recorded in
-    ``records[request_id]`` as (the width of the forward that made it, 0
-    for the prefill; that forward's top-2 logit gap for the token's row),
-    the gaps read from ``stash["gap"]``, which the model's wrapped
-    ``prefill`` / ``decode_step`` set (``_top2_gap``)."""
+    ``records[request_id]`` as (the rows that stepped in the forward that
+    made it, the rows that forward executed, both 0 for the prefill; that
+    forward's top-2 logit gap for the token's row), the gaps read from
+    ``stash["gap"]``, which the model's wrapped ``prefill`` /
+    ``decode_step`` set (``_top2_gap``).  Packed and dense steps both call
+    the model in the dense layout, so a row's gap is at its slot."""
     def admit(req, slot, _inner=engine._prefill_into_slot):
         _inner(req, slot)
-        records[req.request_id] = [(0, stash["gap"][0].item())]
+        records[req.request_id] = [(0, 0, stash["gap"][0].item())]
 
     def consume(ready, host, *, by_position, _inner=engine._consume):
         step = engine.trace[-1]
         gaps = stash["gap"].cpu()
-        width = step.packed or engine.max_batch
-        for pos, s in enumerate(ready):
+        executed = (engine._bucket(step.packed) if step.packed
+                    else engine.max_batch)
+        for s in ready:
             records[engine.active[s].request_id].append(
-                (width, gaps[pos if step.packed else s].item()))
+                (step.active, executed, gaps[s].item()))
         _inner(ready, host, by_position=by_position)
 
     engine._prefill_into_slot, engine._consume = admit, consume
@@ -2978,8 +3147,9 @@ def _chaos_run(model, prompts: list, plan, *, ladder: bool = True) -> dict:
     """One run of the chaos workload on a fresh two-replica cluster of
     ``model`` under ``plan`` (None: fault-free; ``ladder`` False pins the
     degradation ladders at level 0).  Records, per request and token, the
-    width of the forward that made it (0: the prefill) and that forward's
-    top-2 logit gap for the token's row."""
+    stepping and executed rows of the forward that made it (0: the
+    prefill) and that forward's top-2 logit gap for the token's row
+    (``_record_widths``)."""
     from repro_torch.bench.chaos import summarize
     from repro_torch.cluster import ReplicaConfig, RoutingPolicy, build_cluster
     from repro_torch.obs import attribute_stalls
@@ -3066,8 +3236,9 @@ def _token_criterion(label: str, base: dict, run: dict, probe: dict,
     """Hold ``run``'s tokens to ``base``'s (``base_name``).  With
     width-independent rows they must be equal; otherwise each request's
     tokens must equal the base run's up to a first difference, where a
-    forward of that request up to the token ran at another width in the
-    two runs (the token's own, or an earlier one whose K/V it reads) and
+    forward of that request up to the token ran at another width
+    (stepping or executed rows) in the two runs (the token's own, or an
+    earlier one whose K/V it reads) and
     the base run's top-2 logit gap is at most the width probe's largest
     difference.  Returns the number of such requests; any other difference
     fails.  ``probe`` is read only where tokens differ."""
@@ -3081,9 +3252,9 @@ def _token_criterion(label: str, base: dict, run: dict, probe: dict,
         check(len(got) == len(want), f"{label}: {rid} has {len(got)} "
                                      f"tokens, {base_name} {len(want)}")
         p = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
-        bw = [w for w, _ in base["records"][rid]]
-        rw = [w for w, _ in run["records"][rid]]
-        gap = base["records"][rid][p][1]
+        bw = [r[:2] for r in base["records"][rid]]
+        rw = [r[:2] for r in run["records"][rid]]
+        gap = base["records"][rid][p][2]
         other = [i for i in range(p + 1) if bw[i] != rw[i]]
         check(bool(other) and gap <= probe["max_diff"],
               f"{label}: {rid} differs first at token {p} ({base_name} "
@@ -4412,15 +4583,17 @@ def main() -> None:
     x_launches = phase_main(model, lambda stats, n_req: {
         "flash_attention": 0, "paged_attention": 0,
         "mlstm_scan": n_req * n_mlstm, "dequant": 0})
+    phase_width_probes(model, (MAIN["max_len"],))
     phase_profile(model)
     del model
     torch.cuda.empty_cache()
     launches = {k: n + x_launches[k] for k, n in launches.items()}
 
     # qwen1.5-4b (MHA, QKV bias, untied), qwen3p6-27b (the paper's own
-    # serving workload: GQA 40/8, qk_norm; ~39 GB of weights) and qwen3-32b
-    # (GQA 64/8, qk_norm; 65.5 GB): the flash and paged kernels at their
-    # head layouts; each is freed before the next is drawn
+    # serving workload: GQA 40/8, qk_norm; ~39 GB of weights; also 32
+    # slots with its 1k-token prompts, phase_wide) and qwen3-32b (GQA
+    # 64/8, qk_norm; 65.5 GB): the flash and paged kernels at their head
+    # layouts; each is freed before the next is drawn
     for arch in ("qwen1.5-4b", "qwen3p6-27b", "qwen3-32b"):
         model = init_model(arch)
         phase_model_check(model)
@@ -4431,6 +4604,9 @@ def main() -> None:
         launches = {k: n + more[k] for k, n in launches.items()}
         if arch != "qwen1.5-4b":
             phase_profile(model)
+        if arch == "qwen3p6-27b":
+            more = phase_wide(model)
+            launches = {k: n + more[k] for k, n in launches.items()}
         print(f"{arch}: peak allocated over its phases "
               f"{torch.cuda.max_memory_allocated()} bytes")
         del model
@@ -4457,6 +4633,7 @@ def main() -> None:
         model = init_model(arch)
         phase_model_check(model)
         more = phase_main(model, attention_launches(model.cfg))
+        phase_width_probes(model, (MAIN["max_len"],))
         if model.cfg.hybrid:
             ring = phase_hymba_ring(model)
             more = {k: n + ring[k] for k, n in more.items()}

@@ -361,10 +361,11 @@ def decode_step(params, cfg, caches, tokens: torch.Tensor,
                 index: torch.Tensor, slots: Optional[torch.Tensor] = None,
                 max_len: int = 0):
     """One decode step, in place.  tokens: (B,1); index: (B,) current
-    lengths; slots: (B,) distinct cache rows the tokens belong to
-    (default: rows 0..B-1, a cache of exactly B rows; for DTensor inputs,
-    the dry run's, every row of each rank's shard, ``layers.cache_step``);
-    max_len: the
+    lengths; slots: (B,) cache rows the tokens belong to, a row repeated
+    only with identical token and index, whose in-place writes then carry
+    identical bits (the serving engine's pad rows); default: rows 0..B-1,
+    a cache of exactly B rows; for DTensor inputs, the dry run's, every
+    row of each rank's shard, ``layers.cache_step``.  max_len: the
     length the caller retires a row at (the serving engine's), which lets
     a sliding layer whose cache holds every position use the paged kernel
     (0: unknown, every window layer decodes through its ring).  An

@@ -359,7 +359,8 @@ def remat(fn, cfg):
 
 def _step_rows(step, p, h, cfg, state: dict, slots: torch.Tensor):
     """Step the recurrent state of rows ``slots`` and write it back in place
-    (slots must be distinct; None: every row, the dry run's whole-batch
+    (a slot repeats only with identical inputs, so its duplicate writes
+    carry identical values; None: every row, the dry run's whole-batch
     step).  Returns the step's output."""
     if slots is None:
         y, new = step(p, h, cfg, dict(state))
@@ -387,8 +388,9 @@ def xlstm_block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
     from the empty state; the new cache is ``{"ssm": final state}``) or
     "decode" (step the rows at
     ``slots`` of ``cache`` and write their new state back in place).
-    Slots must be distinct: duplicate rows in an in-place write have no
-    defined winner.  ``norm_in`` is what the block's norm reads (default
+    A slot may repeat only with identical inputs: duplicate rows of an
+    in-place write have no defined winner, so they must carry identical
+    values.  ``norm_in`` is what the block's norm reads (default
     ``x``): the decode passes the previous block's f32 ``resid``, as the
     reference's compiled decode does (``_trunk``)."""
     kind = block_kind(cfg, layer_idx)
@@ -511,7 +513,8 @@ def decode_attention(p, h, cfg, *, positions, cache, cache_index, slots):
     kernel: the layer's (B, cap, KV, D) cache viewed as pages
     (B*cap/page, page, KV, D), block-table row ``slot*(cap/page) +
     arange(cap/page)`` and ``lengths = index + 1``.  Slots must be
-    distinct: duplicate rows in an in-place write have no defined winner.
+    distinct or repeat with identical inputs: duplicate rows of an in-place
+    write have no defined winner, so they must carry identical values.
 
     This selects exactly the keys of the reference's
     ``_ring_decode_attention`` mask (``0 <= pos <= index``, and ``pos >

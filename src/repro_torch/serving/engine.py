@@ -25,10 +25,16 @@ Differences from the reference:
     only the sampling generator (``seed + 1``, as the reference's key);
   * decode writes K/V in place and the paged kernel reads the resident
     cache (xLSTM, Mamba-2: the stepping rows' state is read at their slots
-    and written back in place), so there is no gather/scatter of whole caches
-    and no power-of-two bucket: the packed step runs at exactly the packed
-    width (accounting, which prices that width in both packages, is
-    unchanged);
+    and written back in place), so there is no gather/scatter of whole caches;
+  * a packed step is padded, as the reference's is, but to one width, the
+    engine's ``max_batch`` (``_bucket``), not to a power of two: on the
+    card cuBLAS runs a projection's GEMM by one algorithm for M <= 8 rows
+    and by another for M >= 17, so a row's bits would move with the
+    step's width, and powers of two up to 8 are widths of their own.  The
+    call takes the dense step's layout (row i is slot i) with each slot
+    that does not step copying the first stepping row, whose writes carry
+    identical values (``_decode_packed``).  Accounting prices the stepping
+    rows, as in both packages;
   * with bridge_opt on (``cc_aware_defaults(..., bridge_opt=True)``)
     staging goes through a ``StagingArena`` and sub-threshold crossings
     through a ``CrossingCoalescer``, as in the reference; the tensors a
@@ -102,7 +108,8 @@ class StepTrace:
     #: slots that sat this step out because their KV restore pipeline was
     #: still draining (slot-masked decode; 0 on every unmasked step)
     deferred: int = 0
-    #: rows the packed forward executed; 0 on dense steps
+    #: rows the packed step stepped (its executed width is the engine's
+    #: ``_bucket``); 0 on dense steps
     packed: int = 0
 
 
@@ -516,13 +523,13 @@ class ServingEngine:
     def _step_packed(self, slots: list, ready: list, deferred: list) -> int:
         """Packed ragged decode step (the default path).
 
-        The forward runs over exactly the ready slots: row ``i`` is slot
-        ``ready[i]``, whose K/V the model writes in place at its own
-        position.  Prep crossings, the compute charge and the drain all
-        cover the packed set and nothing else.  The slot ids ride the first
-        of the step's four per-step index uploads (same shape, dtype and
-        bytes as the reference's placeholder), so the rows the kernel reads
-        are named by what crossed the bridge.
+        The ready slots step, each writing its K/V in place at its own
+        position, through ``_decode_packed`` at the executed width
+        ``_bucket(n)``.  Prep crossings, the compute charge, sampling and
+        the drain all cover the packed set and nothing else.  The slot ids
+        ride the first of the step's four per-step index uploads (same
+        shape, dtype and bytes as the reference's placeholder), so the rows
+        the kernel reads are named by what crossed the bridge.
         """
         batch = RaggedBatch.from_slots(
             [(s, self.active[s].index) for s in ready])
@@ -536,9 +543,8 @@ class ServingEngine:
         tokens_dev, index_dev, slots_dev = self._emit_prep(small_inputs)[:3]
         self._whole_batch_barrier(slots)
 
-        logits, self.caches = self.model.decode_step(
-            self.caches, tokens_dev, index_dev, slots_dev,
-            max_len=self.max_len)
+        rows = slots_dev.to(torch.int64)
+        logits = self._decode_packed(tokens_dev, index_dev, slots_dev)[rows]
 
         if self.compute is not None:
             charge = self.compute.decode_charge_packed(
@@ -565,6 +571,35 @@ class ServingEngine:
         self._consume(ready, host_tokens, by_position=True)
         self._poll()        # compute moved the clock this step
         return n
+
+    def _bucket(self, n: int) -> int:
+        """The executed width of a packed step of ``n`` rows: always
+        ``max_batch`` (the reference's rule pads to a power of two), so
+        every decode call of this engine has one row count and a row's
+        bits never depend on how many rows step beside it."""
+        return self.max_batch
+
+    def _decode_packed(self, tokens: torch.Tensor, index: torch.Tensor,
+                       slots: torch.Tensor) -> torch.Tensor:
+        """One decode call for the rows at ``slots`` (n distinct resident
+        slots, ascending; ``tokens`` (n, 1) and ``index`` (n,) in the same
+        order, all on the card) at the executed width ``_bucket(n)``, in
+        the dense step's layout: row i of the call is slot i.  A slot that
+        does not step gets a copy of the first stepping row (its token,
+        index and slot), as the reference pads, so a pad row writes only
+        where that row writes, identical values, and never into another
+        slot's K/V or state.  The executed tensors are built on the card
+        from the uploaded ones (no crossing).  Returns the call's logits,
+        row i for slot i."""
+        width = self._bucket(slots.numel())
+        rows = slots.to(torch.int64)
+        logits, self.caches = self.model.decode_step(
+            self.caches,
+            tokens[:1].repeat(width, 1).index_copy_(0, rows, tokens),
+            index[:1].repeat(width).index_copy_(0, rows, index),
+            slots[:1].repeat(width).index_copy_(0, rows, slots),
+            max_len=self.max_len)
+        return logits
 
     # -- shared step plumbing (dense + packed) -----------------------------------------
 
