@@ -35,6 +35,13 @@ from .channels import P2P_CHANNEL, SecureChannelPool, VirtualClock
 from .policy import RuntimeDefaults, SchedulingPolicy
 
 
+def _span(name: str):
+    """``obs.span(name)``, imported at the call: ``repro_torch.obs``
+    imports this module (its stall attribution reads tapes)."""
+    from repro_torch.obs.ranges import span
+    return span(name)
+
+
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """The real upload: a host array copied onto ``device`` (its shape kept:
     ``np.ascontiguousarray`` would make a 0-d array 1-d)."""
@@ -154,7 +161,8 @@ class TransferGateway:
         cost = self._faulted_cost(op_class, crossing, cost)
         end = self.clock.advance(cost)
         self._record(crossing, cost, op_class, t_end=end, tags=tags)
-        return _to_device(arr, self.device)
+        with _span("gateway/h2d"):
+            return _to_device(arr, self.device)
 
     def d2h(self, device_array: torch.Tensor, *, op_class: str = "d2h",
             tags: tuple = (), raw_bytes: int = 0,
@@ -181,7 +189,8 @@ class TransferGateway:
         end = self.clock.advance(cost)
         self._record(crossing, cost, op_class, t_end=end, tags=tags,
                      raw_bytes=raw_bytes, codec=codec)
-        return device_array.cpu().numpy()
+        with _span("gateway/d2h"):
+            return device_array.cpu().numpy()
 
     def batch_h2d(self, host_arrays: Sequence[np.ndarray], *,
                   op_class: str = "batch_h2d") -> list[torch.Tensor]:
@@ -213,7 +222,9 @@ class TransferGateway:
         end = self.clock.advance(cost)
         self._record(crossing, cost, op_class, t_end=end, tags=tags)
         self.stats.batched_crossings_saved += len(host_arrays) - 1
-        return [_to_device(np.asarray(a), self.device) for a in host_arrays]
+        with _span("gateway/batch_h2d"):
+            return [_to_device(np.asarray(a), self.device)
+                    for a in host_arrays]
 
     def bulk_h2d_pooled(self, host_arrays: Sequence[np.ndarray], *,
                         op_class: str = "bulk_h2d", tags: tuple = (),

@@ -13,13 +13,17 @@ meta has no data and no device, so this is no fallback.  Each wrapper
 marks its work as the region ``KERNEL_<name>`` (``kernel_region``), on
 the card around the launch and on meta around the plain version, so the
 cost counter (``launch/cost_analysis.py``) attributes the region's bytes
-as the reference's ``jax.named_scope("KERNEL_...")`` does.
+as the reference's ``jax.named_scope("KERNEL_...")`` does.  While
+``torch.profiler`` records, the region is also the range
+``kernel/<name>`` (``obs.span``), which holds the kernel's launch.
 """
 
 import contextlib
 import math
 
 import torch
+
+from repro_torch.obs.ranges import span
 
 #: the regions open now, innermost last
 _REGIONS: list[str] = []
@@ -35,7 +39,8 @@ def kernel_region(name: str):
     for listener in _LISTENERS:
         listener.region_entered(name)
     try:
-        yield
+        with span(f"kernel/{name}"):
+            yield
     finally:
         _REGIONS.pop()
 

@@ -38,6 +38,8 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.obs import span
+
 Params = dict  # nested dict of tensors
 
 NEG_INF = -1e30
@@ -622,30 +624,32 @@ def moe_expert_compute(x, idx, gates, wi, wg, wo, *, capacity: int,
     t, d = x.shape
     e, k = wi.shape[0], idx.shape[-1]
     local = None
-    if e_total is not None and e != e_total:
-        local = (idx >= e_offset) & (idx < e_offset + e)
-        idx = torch.where(local, idx - e_offset, torch.zeros_like(idx))
-    flat, slot, keep = (moe_dispatch(idx, e, capacity) if local is None
-                        else moe_dispatch(idx, e, capacity, local))
-    if x.device.type == "cpu":
-        # an accumulating scatter is deterministic on the card only if no
-        # two kept assignments share a slot: duplicates are the waste
-        # slot's, which add zeros and are discarded
-        pairs = flat[keep] * (capacity + 1) + slot[keep]
-        assert pairs.unique().numel() == pairs.numel(), \
-            "two kept MoE assignments share an expert slot"
-    buf = torch.zeros((e, capacity + 1, d), dtype=dtype, device=x.device)
-    src = x.repeat_interleave(k, dim=0).to(dtype)
-    src = torch.where(keep[:, None], src, torch.zeros_like(src))
-    buf.index_put_((flat, slot), src, accumulate=True)
-    buf = buf[:, :capacity]
-    hg = silu(torch.einsum("ecd,edf->ecf", buf, wg))
-    hi = torch.einsum("ecd,edf->ecf", buf, wi)
-    out = torch.einsum("ecf,efd->ecd", hg * hi, wo)
-    out = F.pad(out, (0, 0, 0, 1))                       # waste slot reads 0
-    gathered = out[flat, slot]                           # (t*k, d)
-    w = (gates.reshape(t * k) * keep).float()
-    return (gathered.float() * w[:, None]).reshape(t, k, d).sum(dim=1)
+    with span("model/moe/dispatch"):            # slots, scatter into them
+        if e_total is not None and e != e_total:
+            local = (idx >= e_offset) & (idx < e_offset + e)
+            idx = torch.where(local, idx - e_offset, torch.zeros_like(idx))
+        flat, slot, keep = (moe_dispatch(idx, e, capacity) if local is None
+                            else moe_dispatch(idx, e, capacity, local))
+        if x.device.type == "cpu":
+            # an accumulating scatter is deterministic on the card only if
+            # no two kept assignments share a slot: duplicates are the
+            # waste slot's, which add zeros and are discarded
+            pairs = flat[keep] * (capacity + 1) + slot[keep]
+            assert pairs.unique().numel() == pairs.numel(), \
+                "two kept MoE assignments share an expert slot"
+        buf = torch.zeros((e, capacity + 1, d), dtype=dtype, device=x.device)
+        src = x.repeat_interleave(k, dim=0).to(dtype)
+        src = torch.where(keep[:, None], src, torch.zeros_like(src))
+        buf.index_put_((flat, slot), src, accumulate=True)
+        buf = buf[:, :capacity]
+    with span("model/moe/experts"):             # SwiGLU, gated gather back
+        hg = silu(torch.einsum("ecd,edf->ecf", buf, wg))
+        hi = torch.einsum("ecd,edf->ecf", buf, wi)
+        out = torch.einsum("ecf,efd->ecd", hg * hi, wo)
+        out = F.pad(out, (0, 0, 0, 1))                   # waste slot reads 0
+        gathered = out[flat, slot]                       # (t*k, d)
+        w = (gates.reshape(t * k) * keep).float()
+        return (gathered.float() * w[:, None]).reshape(t, k, d).sum(dim=1)
 
 
 def moe_route(p: Params, x: torch.Tensor, cfg):
@@ -698,17 +702,21 @@ def moe_block(p: Params, x: torch.Tensor, cfg, *,
     the tokens of one data shard, as the reference's does."""
     g, s, d = x.shape
     e, k = cfg.n_routed_experts, cfg.moe_top_k
-    probs, gates, idx = moe_route(p, x, cfg)
-    me = probs.mean(dim=(0, 1))
-    ce = probs.new_zeros(e).index_add_(
-        0, idx.reshape(-1), torch.ones_like(idx.reshape(-1), dtype=F32)
-    ) / (g * s * k)
-    aux = e * torch.sum(me * ce)
+    with span("model/moe/route"):               # router, top-k, aux loss
+        probs, gates, idx = moe_route(p, x, cfg)
+        me = probs.mean(dim=(0, 1))
+        ce = probs.new_zeros(e).index_add_(
+            0, idx.reshape(-1), torch.ones_like(idx.reshape(-1), dtype=F32)
+        ) / (g * s * k)
+        aux = e * torch.sum(me * ce)
     n_model = _ep_degree(e)
     if not n_model:
         t = g * s
         capacity = moe_capacity(t, cfg, capacity_factor=capacity_factor,
                                 no_drop=no_drop)
+        if no_drop:
+            moe_block.decode_assignments += t * k
+            moe_block.decode_slots += e * capacity
         y = moe_expert_compute(x.reshape(t, d), idx.reshape(t, k),
                                gates.reshape(t, k), p["wi"], p["wg"],
                                p["wo"], capacity=capacity, dtype=cfg.dtype)
@@ -718,8 +726,16 @@ def moe_block(p: Params, x: torch.Tensor, cfg, *,
                                  no_drop=no_drop)
     y = y.to(x.dtype).reshape(g, s, d)
     if cfg.n_shared_experts:
-        y = y + mlp_block(p["shared"], x, cfg)
+        with span("model/moe/shared"):
+            y = y + mlp_block(p["shared"], x, cfg)
     return y, aux
+
+
+#: on one device, the routed assignments (t * k) and the expert slots
+#: computed (e * capacity) of every ``no_drop`` (decode) call: counted from
+#: shapes, no device read
+moe_block.decode_assignments = 0
+moe_block.decode_slots = 0
 
 
 def _moe_expert_parallel(p: Params, x, idx, gates, cfg, n_model: int, *,

@@ -37,6 +37,7 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device
 
 from repro_torch.kernels import note_loop
+from repro_torch.obs import span
 from repro_torch.training.optimizer import tree_map
 
 from .layers import (Params, apply_norm, gather_for_use, init_norm,
@@ -138,8 +139,9 @@ def _xlstm_trunk(params, cfg, x, *, mode, caches, slots):
             p, x, cfg, i, mode=mode, cache=layers[i], slots=slots,
             norm_in=resid if compiled else None)
         new_layers.append(nc)
-    x = apply_norm(params["final_norm"], resid if compiled else x,
-                   cfg.norm_kind).to(x.dtype)
+    with span("model/logits"):                  # the final norm
+        x = apply_norm(params["final_norm"], resid if compiled else x,
+                       cfg.norm_kind).to(x.dtype)
     if mode == "decode":
         return x, caches, None
     return x, (None if mode == "train" else {"blocks": new_layers}), None
@@ -188,8 +190,9 @@ def _trunk(params, cfg, x, *, mode, positions, caches=None, cache_index=None,
                 aux = aux + out
             layers.append(out)
         if compiled:
-            x = apply_norm(params["final_norm"], resid,
-                           cfg.norm_kind).to(x.dtype)
+            with span("model/logits"):          # the final norm
+                x = apply_norm(params["final_norm"], resid,
+                               cfg.norm_kind).to(x.dtype)
             return x, (caches if decode else None), aux
         new["blocks"] = layers
     else:                                        # scan-stacked
@@ -204,7 +207,8 @@ def _trunk(params, cfg, x, *, mode, positions, caches=None, cache_index=None,
             layers.append(out)
         if mode == "prefill":
             new["blocks"] = _stack(layers)
-    x = apply_norm(params["final_norm"], x, cfg.norm_kind)
+    with span("model/logits"):                  # the final norm
+        x = apply_norm(params["final_norm"], x, cfg.norm_kind)
     if decode:
         return x, caches, None
     return x, (None if train else new), aux
@@ -347,14 +351,18 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
     ``patch_embeds`` (B, P, D) go before the tokens and into the cache.
 
     Returns (last_position_logits, caches, next_index)."""
-    params = gather_for_use(params)
-    x, positions, enc_out, _ = _assemble_inputs(
-        params, cfg, tokens, frames=frames, patch_embeds=patch_embeds)
-    total = x.shape[1]
-    x, new_caches, _ = _trunk(params, cfg, x, mode="prefill",
-                              positions=positions, max_len=max_len,
-                              enc_out=enc_out)
-    return _logits(params, cfg, x[:, -1:]), new_caches, total
+    with span("model/prefill"):
+        params = gather_for_use(params)
+        with span("model/embed"):
+            x, positions, enc_out, _ = _assemble_inputs(
+                params, cfg, tokens, frames=frames, patch_embeds=patch_embeds)
+        total = x.shape[1]
+        x, new_caches, _ = _trunk(params, cfg, x, mode="prefill",
+                                  positions=positions, max_len=max_len,
+                                  enc_out=enc_out)
+        with span("model/logits"):
+            logits = _logits(params, cfg, x[:, -1:])
+        return logits, new_caches, total
 
 
 def decode_step(params, cfg, caches, tokens: torch.Tensor,
@@ -370,16 +378,20 @@ def decode_step(params, cfg, caches, tokens: torch.Tensor,
     a sliding layer whose cache holds every position use the paged kernel
     (0: unknown, every window layer decodes through its ring).  An
     encoder-decoder's cross attention reads the rows' cross K/V."""
-    params = gather_for_use(params)
-    b = tokens.shape[0]
-    index = index.reshape(-1).expand(b) if index.numel() == 1 else index
-    if slots is None and not _is_dtensor(tokens):
-        slots = torch.arange(b, device=tokens.device)
-    x = _embed_tokens(params, tokens)
-    x, caches, _ = _trunk(params, cfg, x, mode="decode",
-                          positions=index[:, None], caches=caches,
-                          cache_index=index, slots=slots, max_len=max_len)
-    return _logits(params, cfg, x), caches
+    with span("model/decode_step"):
+        params = gather_for_use(params)
+        b = tokens.shape[0]
+        index = index.reshape(-1).expand(b) if index.numel() == 1 else index
+        if slots is None and not _is_dtensor(tokens):
+            slots = torch.arange(b, device=tokens.device)
+        with span("model/embed"):
+            x = _embed_tokens(params, tokens)
+        x, caches, _ = _trunk(params, cfg, x, mode="decode",
+                              positions=index[:, None], caches=caches,
+                              cache_index=index, slots=slots, max_len=max_len)
+        with span("model/logits"):
+            logits = _logits(params, cfg, x)
+        return logits, caches
 
 
 # ---------------------------------------------------------------------------------

@@ -47,6 +47,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.obs import span
 
 from . import ssm
 from .layers import (NEG_INF, Params, apply_norm, attention_block,
@@ -232,45 +233,47 @@ def block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
     block's f32 ``resid``."""
     kind = block_kind(cfg, layer_idx)
     window = layer_window(cfg, layer_idx)
-    h = apply_norm(p["attn_norm"], x if norm_in is None else norm_in,
-                   cfg.norm_kind).to(x.dtype)
-    new_cache: dict = {}
-    if mode in ("train", "encode"):
-        train = mode == "train"
-        if cfg.use_mla:
-            y, _ = mla_block(p["attn"], h, cfg, positions=positions,
-                             train=train)
+    with span("model/attention"):   # norm, mixer, cache write
+        h = apply_norm(p["attn_norm"], x if norm_in is None else norm_in,
+                       cfg.norm_kind).to(x.dtype)
+        new_cache: dict = {}
+        if mode in ("train", "encode"):
+            train = mode == "train"
+            if cfg.use_mla:
+                y, _ = mla_block(p["attn"], h, cfg, positions=positions,
+                                 train=train)
+            else:
+                y, _ = attention_block(p["attn"], h, cfg, positions=positions,
+                                       window=window, causal=causal,
+                                       train=train)
+        elif mode == "prefill":
+            if cfg.use_mla:
+                y, latents = mla_block(p["attn"], h, cfg, positions=positions,
+                                       return_kv=True)
+                new_cache["kv"] = assemble_mla_cache(
+                    latents, layer_cap(max_len, window), positions, cfg.dtype)
+            else:
+                y, kv = attention_block(p["attn"], h, cfg, positions=positions,
+                                        window=window, causal=causal,
+                                        return_kv=True)
+                new_cache["kv"] = assemble_kv_cache(
+                    kv, layer_cap(max_len, window), positions, cfg.dtype)
         else:
-            y, _ = attention_block(p["attn"], h, cfg, positions=positions,
-                                   window=window, causal=causal, train=train)
-    elif mode == "prefill":
-        if cfg.use_mla:
-            y, latents = mla_block(p["attn"], h, cfg, positions=positions,
-                                   return_kv=True)
-            new_cache["kv"] = assemble_mla_cache(
-                latents, layer_cap(max_len, window), positions, cfg.dtype)
-        else:
-            y, kv = attention_block(p["attn"], h, cfg, positions=positions,
-                                    window=window, causal=causal,
-                                    return_kv=True)
-            new_cache["kv"] = assemble_kv_cache(
-                kv, layer_cap(max_len, window), positions, cfg.dtype)
-    else:
-        y = decode_kv(p["attn"], h, cfg, positions=positions,
-                      cache=cache["kv"], cache_index=cache_index,
-                      slots=slots, window=window, max_len=max_len)
-        new_cache = cache
+            y = decode_kv(p["attn"], h, cfg, positions=positions,
+                          cache=cache["kv"], cache_index=cache_index,
+                          slots=slots, window=window, max_len=max_len)
+            new_cache = cache
 
-    if kind == "hybrid":
-        if mode == "decode":
-            ys = _step_rows(ssm.mamba_step, p["ssm"], h, cfg, cache["ssm"],
-                            slots)
-        else:
-            ys, state = ssm.mamba_chunked(p["ssm"], h, cfg)
-            if mode == "prefill":
-                new_cache["ssm"] = state
-        y = 0.5 * (apply_norm(p["attn_out_norm"], y, "rmsnorm")
-                   + apply_norm(p["ssm_out_norm"], ys, "rmsnorm"))
+        if kind == "hybrid":
+            if mode == "decode":
+                ys = _step_rows(ssm.mamba_step, p["ssm"], h, cfg, cache["ssm"],
+                                slots)
+            else:
+                ys, state = ssm.mamba_chunked(p["ssm"], h, cfg)
+                if mode == "prefill":
+                    new_cache["ssm"] = state
+            y = 0.5 * (apply_norm(p["attn_out_norm"], y, "rmsnorm")
+                       + apply_norm(p["ssm_out_norm"], ys, "rmsnorm"))
 
     # GSPMD reduces a row-parallel product's partial sums where a consumer
     # needs them; DTensor would carry them into the residual sum and the
@@ -285,19 +288,20 @@ def block_apply(p: Params, x: torch.Tensor, cfg, layer_idx: int, *,
                              positions=positions, enc_out=enc_out,
                              cache=cache, slots=slots, new_cache=new_cache)
         resid = x.float() + shard_hint(yc, ("batch", "seq", "embed")).float()
-    if fused:
-        h = apply_norm(p["mlp_norm"], resid, cfg.norm_kind).to(x.dtype)
-        x = resid.to(x.dtype)
-    else:
-        x = resid.to(x.dtype)
-        h = apply_norm(p["mlp_norm"], x, cfg.norm_kind)
     aux = None
-    if kind == "moe":
-        y, aux = moe_block(p["mlp"], h, cfg,
-                           capacity_factor=cfg.capacity_factor,
-                           no_drop=(mode == "decode"))
-    else:
-        y = mlp_block(p["mlp"], h, cfg)
+    with span("model/ffn"):                     # norm, MLP or MoE
+        if fused:
+            h = apply_norm(p["mlp_norm"], resid, cfg.norm_kind).to(x.dtype)
+            x = resid.to(x.dtype)
+        else:
+            x = resid.to(x.dtype)
+            h = apply_norm(p["mlp_norm"], x, cfg.norm_kind)
+        if kind == "moe":
+            y, aux = moe_block(p["mlp"], h, cfg,
+                               capacity_factor=cfg.capacity_factor,
+                               no_drop=(mode == "decode"))
+        else:
+            y = mlp_block(p["mlp"], h, cfg)
     y = shard_hint(y, ("batch", "seq", "embed"))
     if mode == "train":
         new_cache = aux if aux is not None else x.new_zeros((), dtype=torch.float32)

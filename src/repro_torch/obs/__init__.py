@@ -1,6 +1,7 @@
-"""repro_torch.obs — the bridge observatory (telemetry on the virtual clock).
+"""repro_torch.obs — the bridge observatory (telemetry on the virtual clock,
+and ranges on the profiler's).
 
-One layer, four instruments, every subsystem reports through it:
+One layer, five instruments, every subsystem reports through it:
 
   * metrics.py   label-keyed counters/gauges/histograms with exact
                  percentiles, snapshot-able, associatively mergeable
@@ -10,6 +11,10 @@ One layer, four instruments, every subsystem reports through it:
   * stalls.py    §5.2-style stall attribution: every gap second of a tape
                  classified into the paper's causes, conserved exactly
   * timeline.py  Perfetto / chrome://tracing export of tapes + stalls
+  * ranges.py    ``span``: wall-clock ranges of the engine, gateway, model
+                 and kernels on the ``torch.profiler`` clock while it
+                 records (one check and a no-op otherwise), with their
+                 host totals by path
 
 The observatory is passive: it never reads or advances the virtual clock,
 so enabling it cannot change a schedule, a tape, or a golden stream.
@@ -17,6 +22,7 @@ so enabling it cannot change a schedule, a tape, or a golden stream.
 
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       SNAPSHOT_PERCENTILES, percentile)
+from .ranges import clear_totals, span, totals
 from .spans import Observatory, RequestSpan, SpanTracker
 from .stalls import (CAUSE_DEFERRED, CAUSE_FLUSH, CAUSE_FRESH,
                      CAUSE_REATTEST, CAUSE_REESTABLISH, CAUSE_RESTORE,
@@ -34,4 +40,5 @@ __all__ = [
     "CAUSE_SERIAL", "CAUSE_UNATTRIBUTED",
     "StallInterval", "StallReport", "attribute_stalls", "ladder_table",
     "export_timeline", "tape_to_trace_events",
+    "span", "totals", "clear_totals",
 ]

@@ -180,10 +180,11 @@ class Observatory:
 
     One Observatory serves one clock domain (a replica, or a bare engine).
     ``attach_gateway`` subscribes to ``TransferGateway.on_record`` and turns
-    every CopyRecord into bridge counters/histograms; it is idempotent per
-    gateway.  ``merge`` folds many observatories into a fleet view (metric
-    merge is associative; span dicts union — req_ids are replica-prefixed
-    upstream so they never collide).
+    every CopyRecord into bridge counters/histograms (a cluster's
+    ``stats()["obs"]`` carries them, equal to the reference's); it is
+    idempotent per gateway.  ``merge`` folds many observatories into a
+    fleet view (metric merge is associative; span dicts union — req_ids
+    are replica-prefixed upstream so they never collide).
     """
 
     def __init__(self, **base_labels: str):
@@ -199,12 +200,6 @@ class Observatory:
             return
         gateway.on_record.append(self._on_record)
         self._attached.append(gateway)
-
-    def detach(self) -> None:
-        for gateway in self._attached:
-            if self._on_record in gateway.on_record:
-                gateway.on_record.remove(self._on_record)
-        self._attached.clear()
 
     def _on_record(self, record) -> None:
         """CopyRecord stream -> bridge metrics. Must stay cheap: this runs

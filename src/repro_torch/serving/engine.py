@@ -67,7 +67,7 @@ from repro_torch.core.policy import (RuntimeDefaults, SchedulingPolicy,
                                      cc_aware_defaults)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import Model
-from repro_torch.obs import Observatory
+from repro_torch.obs import Observatory, span
 from repro_torch.trace import opclasses as oc
 
 from .kv_cache import RaggedBatch
@@ -266,7 +266,8 @@ class ServingEngine:
                 continue
             self.queue.pop(i)
             slot = self.free_slots.pop()
-            self._prefill_into_slot(req, slot)
+            with span("engine/admit", req.request_id):
+                self._prefill_into_slot(req, slot)
             admitted = True
 
     def _ready_lens(self) -> list:
@@ -450,19 +451,24 @@ class ServingEngine:
         With ``packed_decode`` on (the default) the step runs over exactly
         the ready slots (``_step_packed``); otherwise over every slot
         (``_step_dense``).  Greedy token streams are identical.  The
-        degradation ladder's last rung forces the dense step."""
-        self._sync_ladder()
-        self._admit()
-        if not self.active:
-            return 0
-        self.step_count += 1
-        slots = sorted(self.active)
-        ready, deferred = self._ready_slots(slots)
-        ladder = self._ladder()
-        if self.defaults.packed_decode and not (
-                ladder is not None and ladder.dense_step_forced):
-            return self._step_packed(slots, ready, deferred)
-        return self._step_dense(slots, ready, deferred)
+        degradation ladder's last rung forces the dense step.  While
+        ``torch.profiler`` records, the step is the range ``engine/step``,
+        with ``engine/admit`` (one per admitted request, its id as the
+        range's args), ``engine/prep``, ``engine/decode``,
+        ``engine/sample``, ``engine/drain`` and ``engine/consume`` inside."""
+        with span("engine/step"):
+            self._sync_ladder()
+            self._admit()
+            if not self.active:
+                return 0
+            self.step_count += 1
+            slots = sorted(self.active)
+            ready, deferred = self._ready_slots(slots)
+            ladder = self._ladder()
+            if self.defaults.packed_decode and not (
+                    ladder is not None and ladder.dense_step_forced):
+                return self._step_packed(slots, ready, deferred)
+            return self._step_dense(slots, ready, deferred)
 
     def _step_dense(self, slots: list, ready: list, deferred: list) -> int:
         """Dense decode step: the forward runs over all ``max_batch`` rows,
@@ -479,12 +485,14 @@ class ServingEngine:
 
         small_inputs = [tokens, index] + [
             np.zeros((len(ready),), np.int32) for _ in range(4)]
-        tokens_dev, index_dev = self._emit_prep(small_inputs)[:2]
+        with span("engine/prep"):
+            tokens_dev, index_dev = self._emit_prep(small_inputs)[:2]
         self._whole_batch_barrier(slots)
 
-        logits, self.caches = self.model.decode_step(
-            self.caches, tokens_dev, index_dev, self._all_slots,
-            max_len=self.max_len)
+        with span("engine/decode"):
+            logits, self.caches = self.model.decode_step(
+                self.caches, tokens_dev, index_dev, self._all_slots,
+                max_len=self.max_len)
         if self.compute is not None:
             if deferred:
                 charge = self.compute.decode_charge_masked(
@@ -503,10 +511,12 @@ class ServingEngine:
                     bound=charge.bound)
             self._charge_allreduce(len(ready))
         # batch sampling params come from the lowest resident slot
-        next_tokens = sample(logits, self.generator,
-                             self.active[slots[0]].sampling)
-        drain_tokens = next_tokens[ready] if deferred else next_tokens
-        host_tokens = self._drain(drain_tokens)
+        with span("engine/sample"):
+            next_tokens = sample(logits, self.generator,
+                                 self.active[slots[0]].sampling)
+            drain_tokens = next_tokens[ready] if deferred else next_tokens
+        with span("engine/drain"):
+            host_tokens = self._drain(drain_tokens)
 
         self.trace.append(StepTrace(
             step=self.step_count, active=len(ready),
@@ -516,7 +526,8 @@ class ServingEngine:
             policy=self.policy.value, virtual_t=self.clock.now,
             deferred=len(deferred)))
 
-        self._consume(ready, host_tokens, by_position=bool(deferred))
+        with span("engine/consume"):
+            self._consume(ready, host_tokens, by_position=bool(deferred))
         self._poll()        # compute moved the clock this step
         return len(ready)
 
@@ -540,11 +551,15 @@ class ServingEngine:
 
         small_inputs = [tokens, index, batch.slot_array()] + [
             np.zeros((n,), np.int32) for _ in range(3)]
-        tokens_dev, index_dev, slots_dev = self._emit_prep(small_inputs)[:3]
+        with span("engine/prep"):
+            tokens_dev, index_dev, slots_dev = self._emit_prep(
+                small_inputs)[:3]
         self._whole_batch_barrier(slots)
 
-        rows = slots_dev.to(torch.int64)
-        logits = self._decode_packed(tokens_dev, index_dev, slots_dev)[rows]
+        with span("engine/decode"):
+            rows = slots_dev.to(torch.int64)
+            logits = self._decode_packed(tokens_dev, index_dev,
+                                         slots_dev)[rows]
 
         if self.compute is not None:
             charge = self.compute.decode_charge_packed(
@@ -556,9 +571,11 @@ class ServingEngine:
                 bound=charge.bound)
             # on the packed rows, the reference's unpadded count
             self._charge_allreduce(n)
-        next_tokens = sample(logits, self.generator,
-                             self.active[slots[0]].sampling)
-        host_tokens = self._drain(next_tokens)
+        with span("engine/sample"):
+            next_tokens = sample(logits, self.generator,
+                                 self.active[slots[0]].sampling)
+        with span("engine/drain"):
+            host_tokens = self._drain(next_tokens)
 
         self.trace.append(StepTrace(
             step=self.step_count, active=n,
@@ -568,7 +585,8 @@ class ServingEngine:
             policy=self.policy.value, virtual_t=self.clock.now,
             deferred=len(deferred), packed=n))
 
-        self._consume(ready, host_tokens, by_position=True)
+        with span("engine/consume"):
+            self._consume(ready, host_tokens, by_position=True)
         self._poll()        # compute moved the clock this step
         return n
 

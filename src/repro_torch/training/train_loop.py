@@ -19,9 +19,9 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.models.model import loss_fn
+from repro_torch.obs import span
 
 from .optimizer import (AdamWConfig, adamw_update, init_opt_state, leaves,
                         maybe_compress, tree_map)
@@ -60,8 +60,9 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     compression (int8 + error feedback) applies at the accumulation
     boundary, on what would cross the data-parallel all-reduce.  Metrics
     are 0-d tensors: the loss terms, ``grad_norm``, ``lr`` and
-    ``loss_total``.  The step's sections are marked for ``torch.profiler``
-    as ``train/forward``, ``train/backward`` and ``train/optimizer``.
+    ``loss_total``.  The step's sections are ``torch.profiler`` ranges
+    (``obs.span``): ``train/forward``, ``train/backward`` and
+    ``train/optimizer``.
 
     ``grad_shardings``: a tree shaped like ``params`` of DTensor
     placements.  Each gradient is redistributed to its leaf's placements
@@ -70,9 +71,9 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     then arrives by reduce-scatter instead of all-reduce + slice."""
 
     def grads_of(params, batch):
-        with record_function("train/forward"):
+        with span("train/forward"):
             total, metrics = loss_fn(params, cfg, batch)
-        with record_function("train/backward"):
+        with span("train/backward"):
             total.backward()
         if grad_shardings is not None:
             for t, pl in zip(leaves(params), leaves(grad_shardings)):
@@ -109,7 +110,7 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1,
                 for a in leaves(acc):
                     a.div_(microbatches)
             grads, loss = acc, loss / microbatches
-        with record_function("train/optimizer"):
+        with span("train/optimizer"):
             if opt_cfg.compress_grads:
                 if grads is None:
                     grads = tree_map(lambda t: t.grad, params)
