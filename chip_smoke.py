@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py decode_graphs     # the decode graphs' phase alone
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with
 nvcc (sm_90a), holds each kernel to its plain PyTorch version on the card,
@@ -56,7 +57,10 @@ full width for 300 steps, then resumed from its step-300 checkpoint),
 checks that each path went through its kernels
 (launch counters: flash + paged for the dense models and the clusters,
 the chunked mLSTM scan for xlstm-1.3b, dequant once per quantized
-restore) and that its crossing tapes obey the bridge law, profiles a
+restore) and that its crossing tapes obey the bridge law, checks that
+every family's decode calls replay as a CUDA graph bit-equal to eager
+calls and that no eager decode call synchronises the card, and does so at
+the benchmark cells' widths (``phase_decode_graphs``), profiles a
 decode step of olmo-1b, xlstm-1.3b, qwen3p6-27b, qwen3-32b and the three
 models above, recomputes
 ``BENCH_packed.json``, ``BENCH_obs.json``, ``BENCH_chaos.json``,
@@ -82,6 +86,7 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import io
 import json
@@ -209,6 +214,20 @@ RESTORE_FAULTS = dict(seed=1, restore_corruption_p=0.5)
 #: nemotron-4-340b cut to 4 of its 96 layers for one card (every width as
 #: published: 23,253,221,376 parameters, 46.51 GB in bf16)
 NEMOTRON = dict(n_layers=4)
+#: the decode graphs (``models/decode_graph.py``): each family of
+#: ``GRAPH_ARCHS`` at smoke width decodes ``steps`` calls of ``rows`` rows
+#: twice, eagerly and through ``Model.decode_step``, then each is timed
+#: over ``timed`` calls; each benchmark cell's configuration serves at its
+#: width, ``cell_calls`` decode calls each beside an eager call of the same
+#: inputs, two ``cell_prompt``-token prompts admitted every
+#: ``cell_admit_every`` calls
+GRAPHS = dict(rows=8, max_len=64, steps=8, timed=20, cell_calls=64,
+              cell_admit_every=16, cell_prompt=1024, cell_new_tokens=40,
+              cell_seed=31000000001)
+GRAPH_ARCHS = ("olmo-1b", "xlstm-1.3b", "qwen1.5-4b", "qwen3p6-27b",
+               "qwen3-32b", "nemotron-4-340b", "hymba-1.5b",
+               "deepseek-moe-16b", "deepseek-v2-lite-16b",
+               "seamless-m4t-medium", "internvl2-76b")
 #: the dry run's cells on the card's host (fake process group, meta
 #: tensors): olmo-1b's three shapes on one pod, deepseek-moe-16b's decode
 #: (expert parallel) on two
@@ -910,7 +929,8 @@ def _with_attention(model, flash, paged, calls=None,
     layers.attention_core = flash_kept
     transformer.pa_ops.paged_attention = paged_kept
     try:
-        return _prefill_and_decode(model, prompt_len, frontend)
+        with model.decode_graphs.eager():   # a replay calls no patch
+            return _prefill_and_decode(model, prompt_len, frontend)
     finally:
         layers.attention_core, transformer.pa_ops.paged_attention = core, kernel
 
@@ -1030,7 +1050,8 @@ def phase_xlstm_model_check(model) -> None:
         if scan is not kernel:
             ops.mlstm_scan = scan_kept
         try:
-            logits = _prefill_and_decode(model, 300)
+            with model.decode_graphs.eager():   # a replay calls no patch
+                logits = _prefill_and_decode(model, 300)
         finally:
             model_mod.xlstm_block_apply, ops.mlstm_scan = block_apply, kernel
         return logits, resid
@@ -1815,49 +1836,52 @@ def phase_hymba_ring(model) -> dict:
     tokens = {}
     transformer.ring_decode_attention = ring_counted
     try:
-        for policy in (SchedulingPolicy.SYNC_DRAIN,
-                       SchedulingPolicy.ASYNC_OVERLAP,
-                       SchedulingPolicy.WORKER_DRAIN):
-            engine = ServingEngine(model, max_batch=RING["max_batch"],
-                                   max_len=RING["max_len"], policy=policy,
-                                   cc_on=True, seed=0, device=DEVICE)
-            for i, p in enumerate(prompts):
-                engine.submit(Request(f"r{i}", prompt=p, sampling=SamplingParams(
-                    max_new_tokens=RING["new_tokens"])))
-            for fn in counters.values():
-                fn.launches = 0
-            rings[0] = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            try:
-                stats = engine.run()
+        with model.decode_graphs.eager():  # a replay counts no ring decode
+            for policy in (SchedulingPolicy.SYNC_DRAIN,
+                           SchedulingPolicy.ASYNC_OVERLAP,
+                           SchedulingPolicy.WORKER_DRAIN):
+                engine = ServingEngine(model, max_batch=RING["max_batch"],
+                                       max_len=RING["max_len"], policy=policy,
+                                       cc_on=True, seed=0, device=DEVICE)
+                for i, p in enumerate(prompts):
+                    engine.submit(Request(
+                        f"r{i}", prompt=p, sampling=SamplingParams(
+                            max_new_tokens=RING["new_tokens"])))
+                for fn in counters.values():
+                    fn.launches = 0
+                rings[0] = 0
                 torch.cuda.synchronize()
-            finally:
-                engine.close()
-            wall = time.perf_counter() - t0
-            counts = {name: fn.launches for name, fn in counters.items()}
-            for name, c in counts.items():
-                launches[name] += c
-            tokens[policy.value] = {r.request_id: list(r.output_tokens)
-                                    for r in engine.finished}
-            want = {"flash_attention": len(prompts) * cfg.n_layers,
-                    "paged_attention": stats["steps"] * n_global,
-                    "mlstm_scan": 0, "dequant": 0}
-            print(f"ring {cfg.name} {policy.value} (prompts "
-                  f"{RING['prompt_lens']}, max_len {RING['max_len']}, window "
-                  f"{cfg.sliding_window}): {stats['steps']} decode steps, "
-                  f"{stats['total_tokens']} tokens; launches {counts}; ring "
-                  f"decodes {rings[0]} ({cfg.n_layers - n_global} sliding "
-                  f"layers a step); wall {wall:.3f} s")
-            check(stats["finished"] == len(prompts) and all(
-                len(t) == RING["new_tokens"]
-                for t in tokens[policy.value].values()),
-                f"ring {policy.value}: requests unfinished")
-            check(counts == want, f"ring {policy.value}: launches {counts}, "
-                                  f"expected {want}")
-            check(rings[0] == stats["steps"] * (cfg.n_layers - n_global),
-                  f"ring {policy.value}: {rings[0]} ring decodes in "
-                  f"{stats['steps']} steps")
+                t0 = time.perf_counter()
+                try:
+                    stats = engine.run()
+                    torch.cuda.synchronize()
+                finally:
+                    engine.close()
+                wall = time.perf_counter() - t0
+                counts = {name: fn.launches for name, fn in counters.items()}
+                for name, c in counts.items():
+                    launches[name] += c
+                tokens[policy.value] = {r.request_id: list(r.output_tokens)
+                                        for r in engine.finished}
+                want = {"flash_attention": len(prompts) * cfg.n_layers,
+                        "paged_attention": stats["steps"] * n_global,
+                        "mlstm_scan": 0, "dequant": 0}
+                print(f"ring {cfg.name} {policy.value} (prompts "
+                      f"{RING['prompt_lens']}, max_len {RING['max_len']}, "
+                      f"window {cfg.sliding_window}): {stats['steps']} "
+                      f"decode steps, {stats['total_tokens']} tokens; "
+                      f"launches {counts}; ring decodes {rings[0]} "
+                      f"({cfg.n_layers - n_global} sliding layers a step); "
+                      f"wall {wall:.3f} s")
+                check(stats["finished"] == len(prompts) and all(
+                    len(t) == RING["new_tokens"]
+                    for t in tokens[policy.value].values()),
+                    f"ring {policy.value}: requests unfinished")
+                check(counts == want, f"ring {policy.value}: launches "
+                                      f"{counts}, expected {want}")
+                check(rings[0] == stats["steps"] * (cfg.n_layers - n_global),
+                      f"ring {policy.value}: {rings[0]} ring decodes in "
+                      f"{stats['steps']} steps")
     finally:
         transformer.ring_decode_attention = ring
     same = len({json.dumps(t, sort_keys=True) for t in tokens.values()}) == 1
@@ -3033,12 +3057,16 @@ def _width_probe(model, prompts: list, max_batch: int, max_len: int,
             ops = []
             undo = _record_ops(ops) if record else None
             try:
-                if width is None:
-                    engine.caches = _clone_tree(saved)
-                    logits = engine._decode_packed(tok, idx, sl)
-                else:
-                    logits, _ = model.decode_step(_clone_tree(saved), tok,
-                                                  idx, sl, max_len=max_len)
+                # a replay records no op
+                with (model.decode_graphs.eager() if record
+                      else contextlib.nullcontext()):
+                    if width is None:
+                        engine.caches = _clone_tree(saved)
+                        logits = engine._decode_packed(tok, idx, sl)
+                    else:
+                        logits, _ = model.decode_step(
+                            _clone_tree(saved), tok, idx, sl,
+                            max_len=max_len)
             finally:
                 if undo:
                     undo()
@@ -4524,6 +4552,277 @@ def _kernel_breakdown(fn, label: str, calls: int = 10, show: bool = True,
     return sum(us for us, _ in per_call) / 1e3
 
 
+def _syncs_of(fn) -> list:
+    """The lines that synchronised the card while ``fn()`` ran (torch's
+    sync debug mode warns at each; a graph capture cannot hold one)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sorted({f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                   for w in seen
+                   if "called a synchronizing" in str(w.message)})
+
+
+def _host_and_wall_ms(fn, calls: int) -> tuple:
+    """(host ms a call, wall ms a call) over ``calls`` calls of ``fn``:
+    the host's time to return, and the time to the card's end."""
+    torch.cuda.synchronize()
+    host = 0.0
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        h0 = time.perf_counter()
+        fn()
+        host += time.perf_counter() - h0
+    torch.cuda.synchronize()
+    return host / calls * 1e3, (time.perf_counter() - t0) / calls * 1e3
+
+
+def _graph_family(arch: str) -> dict:
+    """One smoke-width family: its decode calls eager and through
+    ``Model.decode_step`` (recorded and replayed where the configuration
+    allows it), the logits compared, the syncs an eager call makes, and
+    both timed."""
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models.model import Model, decode_step
+    cfg = smoke_config(get_config(arch))
+    model = Model(cfg, seed=0, device=DEVICE)
+    b, max_len = GRAPHS["rows"], GRAPHS["max_len"]
+    enc = cfg.frontend_tokens if cfg.encoder_layers else 0
+    eager_c = model.init_cache(b, max_len, enc_len=enc)
+    graph_c = model.init_cache(b, max_len, enc_len=enc)
+    slots = torch.arange(b, device=DEVICE, dtype=torch.int32)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    calls0, launches = dict(Model.decode_calls), [0, 0]
+    equal, diff, syncs = 0, 0.0, []
+    for step in range(GRAPHS["steps"]):
+        tok = torch.randint(1, cfg.vocab_size, (b, 1), generator=gen,
+                            device=DEVICE, dtype=torch.int32)
+        idx = slots + step
+        got = {}
+
+        def eager():
+            got["want"] = decode_step(model.params, cfg, eager_c, tok, idx,
+                                      slots, max_len)[0]
+        if step == 1:                   # first calls build what they keep
+            syncs = _syncs_of(eager)
+        else:
+            eager()
+        n0 = pa_ops.paged_attention.launches
+        got["got"] = model.decode_step(graph_c, tok, idx, slots, max_len)[0]
+        launches[0] += pa_ops.paged_attention.launches - n0
+        launches[1] = pa_ops.paged_attention.launches - n0
+        equal += torch.equal(got["got"], got["want"])
+        diff = max(diff, (got["got"].float() - got["want"].float()).abs()
+                   .max().item())
+    calls = {k: Model.decode_calls[k] - calls0[k] for k in calls0}
+    tok, idx = torch.ones((b, 1), device=DEVICE, dtype=torch.int32), slots
+    replay_ms = _host_and_wall_ms(
+        lambda: model.decode_step(graph_c, tok, idx, slots, max_len),
+        GRAPHS["timed"])
+    eager_ms = _host_and_wall_ms(
+        lambda: decode_step(model.params, cfg, graph_c, tok, idx, slots,
+                            max_len), GRAPHS["timed"])
+    print(f"decode graph {arch} (smoke width, {b} rows, {cfg.family}"
+          f"{', MLA' if cfg.use_mla else ''}{', hybrid' if cfg.hybrid else ''}"
+          f", mlp {cfg.mlp_kind}): calls "
+          f"{calls}; logits bit-equal in {equal} of {GRAPHS['steps']}, "
+          f"largest difference {diff}; paged launches {launches[0]} "
+          f"(last call {launches[1]}); syncs of an eager call "
+          f"{syncs or 'none'}; host / wall ms a call: eager "
+          f"{eager_ms[0]:.3f} / {eager_ms[1]:.3f}, through decode_step "
+          f"{replay_ms[0]:.3f} / {replay_ms[1]:.3f}")
+    del model, eager_c, graph_c
+    torch.cuda.empty_cache()
+    return dict(calls=calls, equal=equal, syncs=syncs)
+
+
+def _written(caches, slots, index) -> list:
+    """Copies of what a decode call of rows ``slots`` at positions
+    ``index`` writes into attention caches: every leaf of each ``kv``
+    cache at row ``slots[i]``, position ``index[i] % cap`` (the benchmark
+    cells' caches hold nothing else)."""
+    out = []
+
+    def walk(tree):
+        if isinstance(tree, dict) and "pos" in tree:
+            lead, cap = tree["pos"].ndim - 2, tree["pos"].shape[-1]
+            at = (slice(None),) * lead + (slots, index % cap)
+            out.extend(tree[k][at].clone() for k in sorted(tree))
+        elif isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k])
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                walk(v)
+    walk(caches)
+    return out
+
+
+class _EagerBeside:
+    """The engine's model, each decode call compared with an eager call of
+    the same inputs made just after it on the same caches, which rewrites
+    the positions the first call wrote before it reads them (the caches of
+    a benchmark cell have no room for a copy): ``compared`` holds, per
+    call, whether its logits are bit-equal to the eager call's, the
+    largest difference, and whether the positions it wrote hold what the
+    eager call writes there; ``launches`` the paged launches of the calls
+    through the model."""
+
+    def __init__(self, model):
+        self._model, self.compared, self.launches = model, [], 0
+        #: host ms of the calls through the model, by how they ran
+        self.host_ms = {}
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def decode_step(self, caches, tokens, index, slots=None, max_len=0):
+        from repro_torch.kernels.paged_attention import ops as pa_ops
+        from repro_torch.models.model import decode_step
+        m = self._model
+        n0 = pa_ops.paged_attention.launches
+        calls0 = dict(type(m).decode_calls)
+        t0 = time.perf_counter()
+        got, caches = m.decode_step(caches, tokens, index, slots, max_len)
+        how = [k for k, n in type(m).decode_calls.items() if n != calls0[k]]
+        self.host_ms.setdefault(how[0], []).append(
+            (time.perf_counter() - t0) * 1e3)
+        self.launches += pa_ops.paged_attention.launches - n0
+        b = tokens.shape[0]
+        rows = (torch.arange(b, device=tokens.device) if slots is None
+                else slots).long()
+        at = index.reshape(-1).expand(b).long()
+        wrote = _written(caches, rows, at)
+        with torch.no_grad():
+            want = decode_step(m.params, m.cfg, caches, tokens, index, slots,
+                               max_len)[0]
+        self.compared.append((
+            torch.equal(got, want),
+            (got.float() - want.float()).abs().max().item(),
+            all(torch.equal(g, w) for g, w in
+                zip(wrote, _written(caches, rows, at)))))
+        return got, caches
+
+
+def _graph_cell(name: str) -> dict:
+    """A benchmark cell's configuration at its width: ``cell_calls`` decode
+    calls through ``Model.decode_step``, each beside an eager call, with
+    prefills between them; then engine steps timed with the graphs and
+    without."""
+    import numpy as np
+    sys.path.insert(0, ROOT)
+    from portbench import serve, spec, weights
+    from repro_torch.core.bridge import PROFILES, BridgeModel
+    from repro_torch.core.policy import cc_aware_defaults
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import SamplingParams
+    bench = spec.load_benchmark()
+    cell = spec.workload(bench, name)
+    mix = spec.mix(cell["traffic"])
+    cfg, dm = serve.port_config(spec.config(bench, cell["config"]))
+    torch.cuda.reset_peak_memory_stats()
+    params = weights.make(dm, GRAPHS["cell_seed"], DEVICE)
+    model = Model(cfg, params=params, device=DEVICE)
+    engine = ServingEngine(
+        model, max_batch=mix["max_batch"], max_len=mix["max_len"],
+        bridge=BridgeModel(PROFILES[mix["bridge_profile"]],
+                           cc_on=mix["cc_on"]),
+        defaults=cc_aware_defaults(mix["cc_on"], concurrency=mix["clients"]),
+        seed=GRAPHS["cell_seed"], device=DEVICE)
+    beside = engine.model = _EagerBeside(model)
+    rng = np.random.default_rng(GRAPHS["cell_seed"])
+    n_req, prefills, calls0 = 0, 0, dict(Model.decode_calls)
+
+    def admit(n, new_tokens=GRAPHS["cell_new_tokens"]):
+        nonlocal n_req
+        for _ in range(n):
+            engine.submit(Request(
+                f"g{n_req}", prompt=rng.integers(
+                    1, cfg.vocab_size, GRAPHS["cell_prompt"]).tolist(),
+                sampling=SamplingParams(max_new_tokens=new_tokens)))
+            n_req += 1
+    while len(beside.compared) < GRAPHS["cell_calls"]:
+        if len(beside.compared) % GRAPHS["cell_admit_every"] == 0:
+            admit(2)
+            prefills += 2
+        engine.step()
+    calls = {k: Model.decode_calls[k] - calls0[k] for k in calls0}
+    equal = sum(e for e, _, _ in beside.compared)
+    diff = max(d for _, d, _ in beside.compared)
+    writes = sum(w for _, _, w in beside.compared)
+    n_calls = len(beside.compared)
+    print(f"decode graph {name}: {n_calls} decode calls at width "
+          f"{mix['max_batch']} ({engine.policy.value}), {prefills} prefills "
+          f"between them; calls {calls}; logits bit-equal to the eager "
+          f"call's in {equal} of {n_calls}, largest difference {diff}; "
+          f"paged launches {beside.launches} = calls x layers "
+          f"{n_calls * cfg.n_layers}: "
+          f"{beside.launches == n_calls * cfg.n_layers}; positions written "
+          f"equal to the eager call's in {writes} of {n_calls}; host ms a "
+          f"call: "
+          + ", ".join(f"{how} {statistics.median(ms):.3f} (median of "
+                      f"{len(ms)}, max {max(ms):.3f})"
+                      for how, ms in beside.host_ms.items()))
+    engine.model = model
+    admit(4, new_tokens=4 * GRAPHS["timed"])
+    walls = {}
+    for label in ("graphs", "eager", "graphs"):
+        with (model.decode_graphs.eager() if label == "eager"
+              else contextlib.nullcontext()):
+            engine.step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GRAPHS["timed"]):
+                engine.step()
+            torch.cuda.synchronize()
+        walls.setdefault(label, []).append(
+            (time.perf_counter() - t0) / GRAPHS["timed"] * 1e3)
+    print(f"decode graph {name}: engine step wall ms (in turns "
+          f"graphs, eager, graphs; {len(engine.active)} rows stepping): "
+          f"graphs {walls['graphs']}, eager {walls['eager']}; peak "
+          f"allocated {torch.cuda.max_memory_allocated()} bytes")
+    engine.close()
+    engine.caches = None
+    del engine, beside, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(calls=calls, equal=equal, writes=writes, n=n_calls,
+                diff=diff)
+
+
+def phase_decode_graphs() -> None:
+    """Which families replay their decode calls as a CUDA graph, the syncs
+    that hold the others eager, and each benchmark cell's decode calls
+    replayed beside eager ones at the cell's width."""
+    bad = []
+    for arch in GRAPH_ARCHS:
+        try:
+            got = _graph_family(arch)
+        except Exception as exc:    # report every family before failing
+            print(f"decode graph {arch}: FAILED {type(exc).__name__}: {exc}")
+            bad.append(arch)
+            continue
+        if (got["syncs"] or got["calls"]["captured"] != 1
+                or got["equal"] != GRAPHS["steps"]):
+            bad.append(arch)
+    for name in ("nemotron-4-340b-l4.paper-1k1k-c256",
+                 "deepseek-moe-16b.paper-1k1k-c64"):
+        got = _graph_cell(name)
+        if (got["calls"]["captured"] != 1
+                or got["calls"]["replayed"] < got["n"] - 2
+                or got["equal"] != got["n"] or got["writes"] != got["n"]):
+            bad.append(name)
+    check(not bad, f"decode graphs: {bad}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4535,6 +4834,15 @@ def main() -> None:
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import block_kind
 
+    if sys.argv[1:] == ["decode_graphs"]:      # this phase alone
+        card = phase_card()
+        phase_build()
+        phase_decode_graphs()
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     t_start = time.perf_counter()
     card = phase_card()
     phase_build()
@@ -4670,6 +4978,7 @@ def main() -> None:
     del model
     torch.cuda.empty_cache()
 
+    phase_decode_graphs()
     phase_drift()
     for more in (phase_benchmarks(), phase_examples(card)):
         launches = {k: n + more[k] for k, n in launches.items()}

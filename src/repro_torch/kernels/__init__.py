@@ -29,6 +29,17 @@ from repro_torch.obs.ranges import span
 _REGIONS: list[str] = []
 #: the cost counters listening (``launch/cost_analysis.CostCounter``)
 _LISTENERS: list = []
+#: the program's host counters, as (owner, attribute), each registered by
+#: ``host_counter`` where it is defined; a CUDA graph's replay runs no
+#: Python, so it advances each by what its recorded call added
+#: (``models/decode_graph.py``)
+HOST_COUNTERS: list[tuple[object, str]] = []
+
+
+def host_counter(owner, name: str) -> None:
+    """Start the counter ``owner.<name>`` at 0 and register it."""
+    setattr(owner, name, 0)
+    HOST_COUNTERS.append((owner, name))
 
 
 @contextlib.contextmanager

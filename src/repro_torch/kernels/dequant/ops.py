@@ -17,7 +17,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import host_counter, refuse_autograd
 
 from .ref import BLOCK, CODE_DTYPES, dequant_many_ref
 
@@ -64,7 +64,7 @@ def dequant(codes: torch.Tensor, scales: torch.Tensor, *,
     return out.reshape(nblocks, BLOCK)
 
 
-dequant.launches = 0
+host_counter(dequant, "launches")
 
 
 def dequant_many(codes: Sequence[torch.Tensor],

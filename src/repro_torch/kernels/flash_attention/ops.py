@@ -18,8 +18,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import (gqa_local, kernel_region, plain_on_meta,
-                                 refuse_autograd)
+from repro_torch.kernels import (gqa_local, host_counter, kernel_region,
+                                 plain_on_meta, refuse_autograd)
 
 from .ref import flash_attention_ref
 
@@ -79,7 +79,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-flash_attention.launches = 0
+host_counter(flash_attention, "launches")
 
 
 def _plain_local(q, k, v, **kw):

@@ -21,7 +21,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import kernel_region, plain_on_meta, refuse_autograd
+from repro_torch.kernels import (host_counter, kernel_region, plain_on_meta,
+                                 refuse_autograd)
 
 from .ref import mlstm_chunked_ref
 
@@ -177,7 +178,7 @@ def _launch(q, k, v, log_i, log_f, chunk, initial_state):
     return y, (C, n, m), ws
 
 
-mlstm_scan.launches = 0
+host_counter(mlstm_scan, "launches")
 
 
 def _plain_flat(*args, **kw):

@@ -28,7 +28,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import kernel_region, plain_on_meta, refuse_autograd
+from repro_torch.kernels import (host_counter, kernel_region, plain_on_meta,
+                                 refuse_autograd)
 
 from .ref import paged_attention_ref
 
@@ -159,13 +160,16 @@ def _launch(q, k_pages, v_pages, block_tables, lengths):
     return out
 
 
-paged_attention.launches = 0
+host_counter(paged_attention, "launches")
 
 #: (device index, stream) -> the split tickets of the calls on that stream:
 #: zeroed when made, left at zero by every launch (the merging block resets
 #: its entry), so one stream's calls share them in order and two streams
 #: never share them.  Two threads racing on one stream at worst make one
-#: more zeroed buffer.
+#: more zeroed buffer.  A CUDA graph captured on a stream reads and writes
+#: the buffer that stream had then, which its owner keeps alive for the
+#: graph's life (``prepare_capture``): a wider capture on the same stream
+#: later gives the stream a larger buffer, and the graph keeps its own.
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 
 
@@ -173,9 +177,25 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     key = (device.index, stream)
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged_attention: no zeroed split tickets for the capturing "
+                "stream; call prepare_capture before the capture")
         buf = torch.zeros(n, dtype=torch.int32, device=device)
         _TICKETS[key] = buf
     return buf
+
+
+def prepare_capture(device: torch.device, stream: int):
+    """Before a CUDA graph is captured on ``stream``: zero its split
+    tickets, as many as any stream of ``device`` has needed (the graph's
+    calls ran eagerly once before), outside the graph's memory pool, so
+    the capture allocates and zeroes none.  Returns that buffer (None if
+    no call has needed one), which the graph's owner keeps as long as the
+    graph: the graph holds only its address."""
+    n = max((buf.numel() for (index, _), buf in _TICKETS.items()
+             if index == device.index), default=0)
+    return _tickets(device, stream, n) if n else None
 
 
 def _lib() -> ctypes.CDLL:

@@ -38,6 +38,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import host_counter
 from repro_torch.obs import span
 
 Params = dict  # nested dict of tensors
@@ -144,14 +145,33 @@ def apply_norm(params: Params, x: torch.Tensor, kind: str,
 # Rotary position embeddings (half-split, as in the reference)
 # ---------------------------------------------------------------------------------
 
+#: (dim, theta, device) -> the rotary frequencies, built once: building
+#: them uploads ``theta``, a copy from pageable memory that synchronises
+#: the stream, so a per-call build stalls every layer and cannot be
+#: recorded in a CUDA graph
+_ROPE_FREQS: dict[tuple, torch.Tensor] = {}
+
+
+def rope_freqs(dim: int, theta: float, device) -> torch.Tensor:
+    """``1 / theta ** (arange(dim/2) / (dim/2))`` in f32 on ``device``, as
+    the reference computes it from a Python float; made on the first call
+    for each (dim, theta, device) and kept."""
+    key = (dim, float(theta), torch.device(device))
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        half = dim // 2
+        exponent = torch.arange(0, half, dtype=torch.float32,
+                                device=device) / half
+        freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                             device=device), exponent)
+        _ROPE_FREQS[key] = freqs
+    return freqs
+
+
 def rope_table(positions: torch.Tensor, dim: int, theta: float = 10000.0):
     """(positions...) -> (sin, cos) of shape positions.shape + (dim/2,)."""
-    half = dim // 2
-    exponent = torch.arange(0, half, dtype=torch.float32,
-                            device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=positions.device), exponent)
-    angles = positions.float()[..., None] * freqs
+    angles = (positions.float()[..., None]
+              * rope_freqs(dim, theta, positions.device))
     return torch.sin(angles), torch.cos(angles)
 
 
@@ -377,14 +397,23 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+#: (dtype, device) -> GELU's two constants in that dtype, made once (each
+#: an upload, as ``_ROPE_FREQS``'s)
+_GELU_CONSTANTS: dict[tuple, tuple] = {}
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu`` (its tanh form) with the reference's rounding:
     ``x * (0.5 * (1 + tanh(c * (x + k * x**3))))`` where XLA rounds every
     step, ``x**3`` as ``(x * x) * x``, and the constants ``k = 0.044715``
     and ``c = sqrt(2 / pi)`` themselves, to x's dtype (read from the
     compiled HLO); ``F.gelu`` rounds once."""
-    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
-    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    key = (x.dtype, x.device)
+    if key not in _GELU_CONSTANTS:
+        _GELU_CONSTANTS[key] = tuple(
+            torch.tensor(v, dtype=x.dtype, device=x.device)
+            for v in (0.044715, math.sqrt(2 / math.pi)))
+    k, c = _GELU_CONSTANTS[key]
     cdf = 0.5 * (1 + torch.tanh(c * (x + k * (x * x * x))))
     return x * cdf
 
@@ -734,8 +763,8 @@ def moe_block(p: Params, x: torch.Tensor, cfg, *,
 #: on one device, the routed assignments (t * k) and the expert slots
 #: computed (e * capacity) of every ``no_drop`` (decode) call: counted from
 #: shapes, no device read
-moe_block.decode_assignments = 0
-moe_block.decode_slots = 0
+host_counter(moe_block, "decode_assignments")
+host_counter(moe_block, "decode_slots")
 
 
 def _moe_expert_parallel(p: Params, x, idx, gates, cfg, n_model: int, *,

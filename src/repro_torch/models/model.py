@@ -29,6 +29,7 @@ kernels.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -40,6 +41,7 @@ from repro_torch.kernels import note_loop
 from repro_torch.obs import span
 from repro_torch.training.optimizer import tree_map
 
+from .decode_graph import DecodeGraphs, is_dtensor
 from .layers import (Params, apply_norm, gather_for_use, init_norm,
                      make_param, record_axes, shard_hint)
 from .transformer import (block_apply, check_supported, encoder_config,
@@ -273,11 +275,6 @@ def _logits(params, cfg, x):
     return shard_hint(logits, ("batch", "seq", "vocab"))
 
 
-def _is_dtensor(t) -> bool:
-    from torch.distributed.tensor import DTensor
-    return isinstance(t, DTensor)
-
-
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
@@ -382,7 +379,7 @@ def decode_step(params, cfg, caches, tokens: torch.Tensor,
         params = gather_for_use(params)
         b = tokens.shape[0]
         index = index.reshape(-1).expand(b) if index.numel() == 1 else index
-        if slots is None and not _is_dtensor(tokens):
+        if slots is None and not is_dtensor(tokens):
             slots = torch.arange(b, device=tokens.device)
         with span("model/embed"):
             x = _embed_tokens(params, tokens)
@@ -420,7 +417,17 @@ class Model(nn.Module):
     The serving calls (``prefill``, ``decode_step``) run without autograd.
     ``train()`` makes every parameter a leaf tensor that requires grad, so
     ``forward`` and ``loss`` build a graph (``eval()`` undoes it); the
-    training stack (``repro_torch.training``) works on ``params``."""
+    training stack (``repro_torch.training``) works on ``params``.
+
+    On the card ``decode_step`` is recorded once as a CUDA graph for each
+    engine's caches and width and replayed (``decode_graphs``, a
+    ``decode_graph.DecodeGraphs``; inside its ``eager()`` every call runs
+    eagerly, for a tool that patches the functions a decode call runs)."""
+
+    #: decode calls of every model in the process, by how they ran:
+    #: "eager", "captured" (recorded as a CUDA graph, then replayed once)
+    #: and "replayed"
+    decode_calls = {"eager": 0, "captured": 0, "replayed": 0}
 
     def __init__(self, cfg, *, params: Optional[dict] = None, seed: int = 0,
                  device: DeviceLike = None):
@@ -439,6 +446,9 @@ class Model(nn.Module):
             self.register_buffer(name, t)
         self.params = params
         super().train(False)
+        self.decode_graphs = DecodeGraphs(
+            functools.partial(decode_step, params, cfg),
+            not any(is_dtensor(t) for _, t in _flatten(params)))
 
     def train(self, mode: bool = True) -> "Model":
         """Train mode: every parameter requires grad (False: none does)."""
@@ -461,8 +471,10 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, caches, tokens, index, slots=None, max_len=0):
-        return decode_step(self.params, self.cfg, caches, tokens, index, slots,
-                           max_len)
+        logits, caches, how = self.decode_graphs(caches, tokens, index,
+                                                 slots, max_len)
+        Model.decode_calls[how] += 1
+        return logits, caches
 
     def init_cache(self, batch: int, max_len: int, enc_len: int = 0) -> dict:
         return init_cache(self.cfg, batch, max_len, dtype=self.cfg.dtype,
