@@ -87,6 +87,7 @@ no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -226,8 +227,17 @@ GRAPHS = dict(rows=8, max_len=64, steps=8, timed=20, cell_calls=64,
               cell_seed=31000000001)
 GRAPH_ARCHS = ("olmo-1b", "xlstm-1.3b", "qwen1.5-4b", "qwen3p6-27b",
                "qwen3-32b", "nemotron-4-340b", "hymba-1.5b",
-               "deepseek-moe-16b", "deepseek-v2-lite-16b",
+               "deepseek-moe-16b", "deepseek-v2-lite-16b", "deepseek-v3",
                "seamless-m4t-medium", "internvl2-76b")
+#: fields set on a ``GRAPH_ARCHS`` family's smoke config: deepseek-v3
+#: holds a share of its experts (4 of the 8, from 4), as its benchmark
+#: cell does, so its decode tallies the held assignments on the device
+GRAPH_SHARES = {"deepseek-v3": dict(experts_held=4, experts_offset=4)}
+#: families whose prefill is recorded as a CUDA graph in a benchmark cell
+#: (``prefill_graphs``), checked at smoke width with the share above and
+#: these fields: MLA's prefill runs the flash kernel at nope + rope, and
+#: the kernel has no head dim of the smoke width's 48; nope 48 makes it 64
+PREFILL_GRAPH_ARCHS = {"deepseek-v3": dict(nope_head_dim=48, head_dim=64)}
 #: the dry run's cells on the card's host (fake process group, meta
 #: tensors): olmo-1b's three shapes on one pod, deepseek-moe-16b's decode
 #: (expert parallel) on two
@@ -4591,7 +4601,8 @@ def _graph_family(arch: str) -> dict:
     from repro_torch.configs.base import get_config, smoke_config
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.models.model import Model, decode_step
-    cfg = smoke_config(get_config(arch))
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              **GRAPH_SHARES.get(arch, {}))
     model = Model(cfg, seed=0, device=DEVICE)
     b, max_len = GRAPHS["rows"], GRAPHS["max_len"]
     enc = cfg.frontend_tokens if cfg.encoder_layers else 0
@@ -4641,6 +4652,37 @@ def _graph_family(arch: str) -> dict:
     del model, eager_c, graph_c
     torch.cuda.empty_cache()
     return dict(calls=calls, equal=equal, syncs=syncs)
+
+
+def _prefill_graph_family(arch: str) -> dict:
+    """One smoke-width family's prefill of one prompt length through
+    ``Model.prefill`` with a graph kept (eager, captured, then replayed),
+    each call's logits and one-row cache against an eager prefill's."""
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.models.model import Model, prefill
+    from repro_torch.training.optimizer import leaves
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              prefill_graphs=1, **GRAPH_SHARES.get(arch, {}),
+                              **PREFILL_GRAPH_ARCHS[arch])
+    model = Model(cfg, seed=0, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    calls0, equal = dict(Model.prefill_calls), 0
+    for _ in range(GRAPHS["steps"]):
+        tok = torch.randint(1, cfg.vocab_size, (1, GRAPHS["max_len"] // 2),
+                            generator=gen, device=DEVICE)
+        with torch.no_grad():
+            want = prefill(model.params, cfg, tok, GRAPHS["max_len"])
+        got = model.prefill(tok, GRAPHS["max_len"])
+        equal += (got[2] == want[2] and all(
+            torch.equal(g, w) for g, w in
+            zip([got[0]] + leaves(got[1]), [want[0]] + leaves(want[1]))))
+    calls = {k: Model.prefill_calls[k] - calls0[k] for k in calls0}
+    print(f"prefill graph {arch} (smoke width, one prompt of "
+          f"{GRAPHS['max_len'] // 2}): calls {calls}; logits and cache "
+          f"bit-equal in {equal} of {GRAPHS['steps']}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(calls=calls, equal=equal)
 
 
 def _written(caches, slots, index) -> list:
@@ -4800,7 +4842,8 @@ def _graph_cell(name: str) -> dict:
 
 def phase_decode_graphs() -> None:
     """Which families replay their decode calls as a CUDA graph, the syncs
-    that hold the others eager, and each benchmark cell's decode calls
+    that hold the others eager, the prefill graphs of
+    ``PREFILL_GRAPH_ARCHS``, and each benchmark cell's decode calls
     replayed beside eager ones at the cell's width."""
     bad = []
     for arch in GRAPH_ARCHS:
@@ -4813,6 +4856,17 @@ def phase_decode_graphs() -> None:
         if (got["syncs"] or got["calls"]["captured"] != 1
                 or got["equal"] != GRAPHS["steps"]):
             bad.append(arch)
+    for arch in PREFILL_GRAPH_ARCHS:
+        try:
+            got = _prefill_graph_family(arch)
+        except Exception as exc:    # report every family before failing
+            print(f"prefill graph {arch}: FAILED {type(exc).__name__}: "
+                  f"{exc}")
+            bad.append(f"{arch} prefill")
+            continue
+        if (got["calls"]["captured"] != 1
+                or got["equal"] != GRAPHS["steps"]):
+            bad.append(f"{arch} prefill")
     for name in ("nemotron-4-340b-l4.paper-1k1k-c256",
                  "deepseek-moe-16b.paper-1k1k-c64"):
         got = _graph_cell(name)

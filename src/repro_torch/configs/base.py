@@ -83,9 +83,46 @@ class ModelConfig:
     z_loss: float = 1e-4
     moe_aux_weight: float = 1e-2
 
+    # the port's own fields (``PORT_FIELDS``), beyond the reference's: each
+    # default leaves a reference arch as the reference runs it
+    # MLA's query path through a low-rank latent: wdq -> RMSNorm -> wuq
+    # (0: one wq, as deepseek-v2-lite)
+    q_lora_rank: int = 0
+    # YaRN's rotary scaling as (factor, original_max_len, beta_fast,
+    # beta_slow, mscale, mscale_all_dim), () for plain rope: the frequencies
+    # blended between theta's and theta's over the factor by the ramp
+    # between the correction dims of beta_fast / beta_slow rotations over
+    # original_max_len positions; an MLA softmax scale times
+    # mscale(factor, mscale_all_dim)^2
+    yarn: tuple = ()
+    # the MoE router: "softmax" (top-k of the softmax, renormalised) or
+    # "sigmoid_noaux_tc" (sigmoid scores; the experts chosen by the scores
+    # plus ``router_bias`` inside the ``router_topk_groups`` of
+    # ``router_groups`` groups whose two best biased scores sum highest;
+    # gated by the unbiased scores, renormalised); gates times
+    # ``router_scale``
+    router_scoring: str = "softmax"
+    router_groups: int = 1
+    router_topk_groups: int = 1
+    router_scale: float = 1.0
+    # the routed experts held on this device, ``experts_offset`` ..
+    # ``experts_offset + experts_held - 1`` of ``n_routed_experts`` (0: all):
+    # one expert-parallel rank's share, computed without the exchange
+    experts_held: int = 0
+    experts_offset: int = 0
+    # the prompt shapes whose ``Model.prefill`` is recorded as a CUDA graph
+    # on the card, each at its second call, and replayed (0: every prefill
+    # eager); the least recently used goes first
+    prefill_graphs: int = 0
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def experts_here(self) -> int:
+        """The routed experts whose weights this device holds."""
+        return self.experts_held or self.n_routed_experts
 
     @property
     def is_attention_free(self) -> bool:
@@ -115,7 +152,9 @@ class ModelConfig:
             if self.use_mla:
                 dc, dr = self.kv_lora_rank, self.rope_head_dim
                 dn, dv = self.nope_head_dim, self.v_head_dim
-                return (d * h * (dn + dr) + d * (dc + dr)
+                dq = self.q_lora_rank
+                q = d * dq + dq * h * (dn + dr) if dq else d * h * (dn + dr)
+                return (q + d * (dc + dr)
                         + dc * h * dn + dc * h * dv + h * dv * d)
             p = d * h * hd + 2 * d * kv * hd + h * hd * d
             if self.qkv_bias:
@@ -140,7 +179,7 @@ class ModelConfig:
                 total += ssm_params()
             if self.n_routed_experts and not (i == 0 and self.first_layer_dense):
                 e_mlp = 3 * d * self.d_expert
-                total += (self.n_routed_experts * e_mlp
+                total += (self.experts_here * e_mlp
                           + self.n_shared_experts * e_mlp + d * self.n_routed_experts)
             else:
                 width = f if not self.n_routed_experts else self.d_expert * (
@@ -159,6 +198,10 @@ class ModelConfig:
         full = self.param_count()
         e_mlp = 3 * self.d_model * self.d_expert
         moe_layers = self.n_layers - (1 if self.first_layer_dense else 0)
+        if self.experts_held:
+            # a share's experts take their share of each token's top k
+            active = self.moe_top_k * self.experts_held / self.n_routed_experts
+            return full - int(moe_layers * (self.experts_held - active) * e_mlp)
         inactive = moe_layers * (self.n_routed_experts - self.moe_top_k) * e_mlp
         return full - inactive
 
@@ -203,6 +246,17 @@ ARCH_IDS = (
     "qwen3p6-27b",
 )
 
+#: archs the port registers beyond the reference's ``ARCH_IDS``
+#: (published models the benchmark serves; the reference has no config of
+#: theirs to compare with)
+PORT_ARCH_IDS = ("deepseek-v3",)
+
+#: the ``ModelConfig`` fields the port adds to the reference's, each at a
+#: default under which a reference arch runs as the reference runs it
+PORT_FIELDS = ("q_lora_rank", "yarn", "router_scoring", "router_groups",
+               "router_topk_groups", "router_scale", "experts_held",
+               "experts_offset", "prefill_graphs")
+
 #: the archs the serving engine runs: every arch but the encoder-decoder,
 #: whose prefill needs frames the engine does not feed (it passes a
 #: request's tokens only, as the reference's ``_prefill_into_slot`` does;
@@ -211,7 +265,7 @@ ARCH_IDS = (
 PORTED_ARCH_IDS = ("olmo-1b", "qwen1.5-4b", "qwen3-32b", "nemotron-4-340b",
                    "qwen3p6-27b", "xlstm-1.3b", "hymba-1.5b",
                    "deepseek-moe-16b", "deepseek-v2-lite-16b",
-                   "internvl2-76b")
+                   "internvl2-76b") + PORT_ARCH_IDS
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
@@ -222,8 +276,9 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch!r} (known: {', '.join(ARCH_IDS)})")
+    known = ARCH_IDS + PORT_ARCH_IDS
+    if arch not in known:
+        raise KeyError(f"unknown arch {arch!r} (known: {', '.join(known)})")
     if arch not in _REGISTRY:
         module = arch.replace("-", "_").replace(".", "p")
         importlib.import_module(f"repro_torch.configs.{module}")
@@ -231,7 +286,7 @@ def get_config(arch: str) -> ModelConfig:
 
 
 def all_configs() -> dict[str, ModelConfig]:
-    for arch in ARCH_IDS:
+    for arch in ARCH_IDS + PORT_ARCH_IDS:
         get_config(arch)
     return dict(_REGISTRY)
 
@@ -257,6 +312,12 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
                        moe_top_k=2, d_expert=64)
     if cfg.use_mla:
         updates.update(kv_lora_rank=32, rope_head_dim=16, nope_head_dim=32, v_head_dim=32)
+        if cfg.q_lora_rank:
+            updates.update(q_lora_rank=32)
+    if cfg.router_groups > 1:           # 8 experts in 4 groups, 2 kept
+        updates.update(router_groups=4, router_topk_groups=2)
+    if cfg.experts_held:                # the first half of the 8
+        updates.update(experts_held=4, experts_offset=0)
     if cfg.encoder_layers:
         updates.update(encoder_layers=2)
     if cfg.frontend:

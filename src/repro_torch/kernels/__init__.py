@@ -42,6 +42,34 @@ def host_counter(owner, name: str) -> None:
     HOST_COUNTERS.append((owner, name))
 
 
+class DeviceTally:
+    """A count that depends on the data, kept on the device: ``add(n)``
+    adds a device tensor in place without reading it, so a step adds to it
+    with no sync and a CUDA graph's replay adds again; ``value()`` reads
+    the sum over devices (one sync each, once the run is over)."""
+
+    def __init__(self):
+        self._on: dict = {}
+
+    def add(self, n: torch.Tensor) -> None:
+        if n.device.type == "meta":             # shape analysis: no data
+            return
+        tally = self._on.get(n.device)
+        if tally is None:
+            tally = self._on[n.device] = torch.zeros(
+                (), dtype=torch.int64, device=n.device)
+        tally.add_(n)
+
+    def value(self) -> int:
+        return sum(int(t) for t in self._on.values())
+
+
+def device_counter(owner, name: str) -> None:
+    """Start the device tally ``owner.<name>`` (``DeviceTally``) at 0: a
+    replay repeats its recorded add, so it needs no host step."""
+    setattr(owner, name, DeviceTally())
+
+
 @contextlib.contextmanager
 def kernel_region(name: str):
     """Mark the work inside as kernel ``name``'s; each listening counter

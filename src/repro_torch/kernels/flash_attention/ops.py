@@ -41,16 +41,18 @@ def _check(q, k, v, window):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D).  Returns (B, Sq, H, D)."""
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D).  Returns (B, Sq, H, D).
+    ``scale`` multiplies the logits; 1 / sqrt(D) by default."""
     _check(q, k, v, window)
     refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "meta":
         return plain_on_meta("flash_attention", _plain_local, q, k, v,
-                             causal=causal, window=window)
+                             causal=causal, window=window, scale=scale)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -70,7 +72,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, sq, sk, h, kv, d, int(causal), int(window or 0),
-            1.0 / math.sqrt(d),
+            1.0 / math.sqrt(d) if scale is None else scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

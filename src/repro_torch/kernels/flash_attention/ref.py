@@ -17,15 +17,18 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D) with H % KV == 0."""
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D) with H % KV == 0; the logits
+    times ``scale``, 1 / sqrt(D) by default."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     rep = h // kv
     k = torch.repeat_interleave(k, rep, dim=2)
     v = torch.repeat_interleave(v, rep, dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                          k.float()) * (1.0 / math.sqrt(d))
+                          k.float()) * (1.0 / math.sqrt(d) if scale is None
+                                        else scale)
     qpos = torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)

@@ -33,10 +33,19 @@ No Python runs in a replay: the program's host counters
 assignments and slots) advance by what the captured call added to them,
 once per replay, and the program's ranges inside ``model/decode_step`` do
 not open (the replay runs inside that range).
+
+``PrefillGraphs`` does the same for ``Model.prefill`` where the config
+asks for it (``prefill_graphs``, the prompt shapes kept): a prompt shape's
+first call runs eagerly, its second is captured and replayed, the later
+ones replayed; the least recently used graph goes when a new shape would
+pass that number.  A prefill reads no cache, so its key is the prompt's
+shape and ``max_len``; what a replay returns (logits and the one-row
+cache) are copies of the graph's.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import sys
 import weakref
@@ -46,7 +55,7 @@ import torch
 
 from repro_torch.kernels import HOST_COUNTERS
 from repro_torch.obs import span
-from repro_torch.training.optimizer import leaves
+from repro_torch.training.optimizer import leaves, tree_map
 
 #: the side stream each device captures on
 _STREAMS: dict = {}
@@ -170,23 +179,92 @@ class DecodeGraphs:
                 if buf is not None:
                     buf.copy_(t)
             entry.graph.replay()
-            for owner, name, step in entry.steps:
-                setattr(owner, name, getattr(owner, name) + step)
+            _advance(entry.steps)
             return entry.logits.clone(), caches, how
 
     def _capture(self, entry: _Entry, caches, tokens, index, slots,
                  max_len: int) -> None:
         inputs = [None if t is None else t.clone() for t in
                   (tokens, index, slots)]
-        held = list(HOST_COUNTERS)
-        before = [getattr(owner, name) for owner, name in held]
-        try:
-            entry.graph, entry.logits, entry.tickets = capture(
-                lambda: self._run(caches, *inputs, max_len)[0], tokens.device)
-        finally:
-            after = [getattr(owner, name) for owner, name in held]
-            for (owner, name), value in zip(held, before):
-                setattr(owner, name, value)
-        entry.steps = [(owner, name, a - b) for (owner, name), a, b
-                       in zip(held, after, before) if a != b]
+        (entry.graph, entry.logits, entry.tickets), entry.steps = _counted(
+            lambda: capture(lambda: self._run(caches, *inputs, max_len)[0],
+                            tokens.device))
         entry.inputs = inputs
+
+
+def _counted(record: Callable):
+    """``record()`` (a capture) with the host counters put back as they
+    were before it, and the steps it moved them by, as (owner, attribute,
+    step): what each replay adds."""
+    held = list(HOST_COUNTERS)
+    before = [getattr(owner, name) for owner, name in held]
+    try:
+        got = record()
+    finally:
+        after = [getattr(owner, name) for owner, name in held]
+        for (owner, name), value in zip(held, before):
+            setattr(owner, name, value)
+    return got, [(owner, name, a - b) for (owner, name), a, b
+                 in zip(held, after, before) if a != b]
+
+
+def _advance(steps: list) -> None:
+    for owner, name, step in steps:
+        setattr(owner, name, getattr(owner, name) + step)
+
+
+class _Prefill:
+    """One captured prompt shape: the graph, its prompt buffer, what it
+    returns (logits, cache), the prompt's length as the call returned it,
+    its split tickets and the host counters' steps per replay."""
+
+    def __init__(self, graph, tokens, out, total, tickets, steps):
+        self.graph, self.tokens, self.out = graph, tokens, out
+        self.total, self.tickets, self.steps = total, tickets, steps
+
+
+class PrefillGraphs:
+    """A model's prefill calls, each run eagerly, captured or replayed.
+    ``run(tokens, max_len)`` is the eager call, returning (logits, cache,
+    next index); at most ``keep`` prompt shapes hold a graph (0: every
+    call eager); ``on`` False keeps every call eager."""
+
+    def __init__(self, run: Callable, on: bool, keep: int):
+        self._run, self.on, self.keep = run, on, keep
+        self._seen: set = set()
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+
+    def __call__(self, tokens, max_len: int):
+        """Returns (logits, cache, next index, how the call ran: "eager",
+        "captured" or "replayed")."""
+        if not (self.on and self.keep and graphable(tokens)):
+            return (*self._run(tokens, max_len), "eager")
+        key = (_shape(tokens), max_len)
+        entry = self._graphs.get(key)
+        if entry is None and key not in self._seen:
+            self._seen.add(key)
+            return (*self._run(tokens, max_len), "eager")
+        how = "replayed"
+        if entry is None:
+            while len(self._graphs) >= self.keep:
+                self._graphs.popitem(last=False)
+            entry = self._graphs[key] = self._capture(tokens, max_len)
+            how = "captured"
+        self._graphs.move_to_end(key)
+        with span("model/prefill"):
+            entry.tokens.copy_(tokens)
+            entry.graph.replay()
+            _advance(entry.steps)
+            logits, cache = entry.out
+            return (logits.clone(), tree_map(torch.clone, cache),
+                    entry.total, how)
+
+    def _capture(self, tokens, max_len: int) -> _Prefill:
+        buf, got = tokens.clone(), {}
+
+        def call():
+            logits, cache, got["total"] = self._run(buf, max_len)
+            return logits, cache
+        (graph, out, tickets), steps = _counted(
+            lambda: capture(call, tokens.device))
+        return _Prefill(graph, buf, out, got["total"], tickets, steps)

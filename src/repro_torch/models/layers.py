@@ -38,7 +38,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import host_counter
+from repro_torch.kernels import device_counter, host_counter
 from repro_torch.obs import span
 
 Params = dict  # nested dict of tensors
@@ -168,11 +168,67 @@ def rope_freqs(dim: int, theta: float, device) -> torch.Tensor:
     return freqs
 
 
-def rope_table(positions: torch.Tensor, dim: int, theta: float = 10000.0):
-    """(positions...) -> (sin, cos) of shape positions.shape + (dim/2,)."""
-    angles = (positions.float()[..., None]
-              * rope_freqs(dim, theta, positions.device))
-    return torch.sin(angles), torch.cos(angles)
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature: 0.1 * mscale * ln(factor) + 1 (1 for
+    a factor of at most 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _yarn_correction_dim(rotations: float, dim: int, theta: float,
+                         original: int) -> float:
+    """The rotary dim whose wavelength makes ``rotations`` turns over
+    ``original`` positions."""
+    return (dim * math.log(original / (rotations * 2 * math.pi))
+            / (2 * math.log(theta)))
+
+
+def yarn_freqs_host(dim: int, theta: float, yarn: tuple) -> torch.Tensor:
+    """YaRN's blended rotary frequencies in f32 on the host, as DeepSeek
+    publishes them: each of the dim/2 frequencies mixes theta's
+    (``extra``) and theta's divided by the factor (``inter``), weighted by
+    a ramp that is 1 (keep theta's) below the correction dim of
+    ``beta_fast`` rotations and 0 past that of ``beta_slow``."""
+    factor, original, beta_fast, beta_slow = yarn[:4]
+    exponent = torch.arange(0, dim, 2, dtype=F32) / dim
+    extra = 1.0 / (theta ** exponent)
+    inter = 1.0 / (factor * theta ** exponent)
+    low = max(math.floor(_yarn_correction_dim(beta_fast, dim, theta,
+                                              original)), 0)
+    high = min(math.ceil(_yarn_correction_dim(beta_slow, dim, theta,
+                                              original)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=F32) - low)
+                       / (high - low), 0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
+def yarn_freqs(dim: int, theta: float, yarn: tuple, device) -> torch.Tensor:
+    """``yarn_freqs_host`` on ``device``, made on the first call for each
+    (dim, theta, scaling, device) and kept (an upload, as
+    ``rope_freqs``'s)."""
+    key = (dim, float(theta), yarn, torch.device(device))
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        freqs = _ROPE_FREQS[key] = yarn_freqs_host(dim, theta, yarn).to(
+            device)
+    return freqs
+
+
+def rope_table(positions: torch.Tensor, dim: int, theta: float = 10000.0,
+               yarn: tuple = ()):
+    """(positions...) -> (sin, cos) of shape positions.shape + (dim/2,);
+    with ``yarn`` (a config's) over YaRN's frequencies, scaled by
+    mscale(factor, mscale) / mscale(factor, mscale_all_dim) where that is
+    not 1."""
+    freqs = (yarn_freqs(dim, theta, yarn, positions.device) if yarn
+             else rope_freqs(dim, theta, positions.device))
+    angles = positions.float()[..., None] * freqs
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    m = (yarn_mscale(yarn[0], yarn[4]) / yarn_mscale(yarn[0], yarn[5])
+         if yarn else 1.0)
+    return (sin, cos) if m == 1.0 else (sin * m, cos * m)
 
 
 def apply_rope(x: torch.Tensor, sin: torch.Tensor,
@@ -189,12 +245,13 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 # ---------------------------------------------------------------------------------
 
 def dense_attention(q, k, v, *, causal: bool, q_offset: int = 0,
-                    window: Optional[int] = None,
-                    kv_len=None) -> torch.Tensor:
-    """Plain softmax attention in f32.  q:(B,Sq,H,D) k,v:(B,Sk,H,D)."""
+                    window: Optional[int] = None, kv_len=None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Plain softmax attention in f32.  q:(B,Sq,H,D) k,v:(B,Sk,H,D);
+    ``scale`` defaults to 1 / sqrt(D)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(sk, device=q.device)[None, :]
@@ -211,10 +268,11 @@ def dense_attention(q, k, v, *, causal: bool, q_offset: int = 0,
 
 
 def blockwise_attention(q, k, v, *, causal: bool, block_kv: int = 1024,
-                        q_offset: int = 0,
-                        window: Optional[int] = None) -> torch.Tensor:
+                        q_offset: int = 0, window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """The flash-attention algorithm written with tensor ops: a loop over KV
-    blocks with running (max, sum, acc), as the reference's lax.scan."""
+    blocks with running (max, sum, acc), as the reference's lax.scan;
+    ``scale`` defaults to 1 / sqrt(D)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     nblk = -(-sk // block_kv)
@@ -222,7 +280,7 @@ def blockwise_attention(q, k, v, *, causal: bool, block_kv: int = 1024,
     if pad:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     qf = q.float() * scale
     qpos = q_offset + torch.arange(sq, device=q.device)
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
@@ -251,18 +309,20 @@ def blockwise_attention(q, k, v, *, causal: bool, block_kv: int = 1024,
     return out.transpose(1, 2).to(q.dtype)  # (B,H,Sq,D)->(B,Sq,H,D)
 
 
-def attention_core(q, k, v, *, causal: bool,
-                   window: Optional[int] = None) -> torch.Tensor:
+def attention_core(q, k, v, *, causal: bool, window: Optional[int] = None,
+                   scale: Optional[float] = None) -> torch.Tensor:
     """Full-sequence serving attention (prefill, the encoder, cross
     attention): the flash kernel's wrapper.  GQA is native there, so K/V
-    are never repeated in memory."""
+    are never repeated in memory.  ``scale`` defaults to 1 / sqrt(D)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     return fa_ops.flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=causal, window=window)
+                                  v.contiguous(), causal=causal, window=window,
+                                  scale=scale)
 
 
 def train_attention(q, k, v, cfg, *, causal: bool,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """Train-mode attention, selected by ``cfg.attn_impl`` as the
     reference's ``attention_core`` selects it: K/V heads repeated for GQA,
     then ``"blockwise"`` runs ``blockwise_attention`` over blocks of
@@ -285,9 +345,10 @@ def train_attention(q, k, v, cfg, *, causal: bool,
     v = v.repeat_interleave(n_rep, dim=2)
     if cfg.attn_impl == "blockwise":
         return blockwise_attention(q, k, v, causal=causal, window=window,
-                                   block_kv=cfg.attn_block_kv)
+                                   block_kv=cfg.attn_block_kv, scale=scale)
     if cfg.attn_impl == "dense":
-        return dense_attention(q, k, v, causal=causal, window=window)
+        return dense_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
     raise ValueError(f"{cfg.name}: unknown attn_impl {cfg.attn_impl!r}")
 
 
@@ -436,20 +497,29 @@ def mlp_block(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------------
-# MLA attention (deepseek-v2): latent KV cache
+# MLA attention (deepseek-v2, deepseek-v3): latent KV cache
 # ---------------------------------------------------------------------------------
 
 def init_mla(generator, cfg, *, lead: tuple = (), device=None) -> Params:
+    """MLA's leaves; with ``cfg.q_lora_rank`` the query runs through a
+    low-rank latent (``wdq``, ``q_norm``, ``wuq``) in place of ``wq``."""
     d, h = cfg.d_model, cfg.n_heads
     dc, dr = cfg.kv_lora_rank, cfg.rope_head_dim
     dn, dv = cfg.nope_head_dim, cfg.v_head_dim
+    dq = cfg.q_lora_rank
 
     def mk(shape, axes, fan_in):
         return make_param(generator, shape, axes, lead=lead, fan_in=fan_in,
                           dtype=cfg.dtype, device=device)
 
-    return {
-        "wq": mk((d, h, dn + dr), ("embed", "heads", "head_dim"), d),
+    if dq:
+        p = {"wdq": mk((d, dq), ("embed", "q_lora"), d),
+             "q_norm": init_norm(generator, dq, "rmsnorm", cfg.dtype,
+                                 lead=lead, device=device),
+             "wuq": mk((dq, h, dn + dr), ("q_lora", "heads", "head_dim"), dq)}
+    else:
+        p = {"wq": mk((d, h, dn + dr), ("embed", "heads", "head_dim"), d)}
+    return p | {
         "wdkv": mk((d, dc + dr), ("embed", "kv_lora"), d),
         "kv_norm": init_norm(generator, dc, "rmsnorm", cfg.dtype, lead=lead,
                              device=device),
@@ -459,18 +529,36 @@ def init_mla(generator, cfg, *, lead: tuple = (), device=None) -> Params:
     }
 
 
+def mla_softmax_scale(cfg) -> float:
+    """1 / sqrt(nope + rope), times YaRN's mscale(factor, mscale_all_dim)
+    squared where the config scales its rope so."""
+    scale = 1.0 / math.sqrt(cfg.nope_head_dim + cfg.rope_head_dim)
+    if cfg.yarn and cfg.yarn[5]:
+        m = yarn_mscale(cfg.yarn[0], cfg.yarn[5])
+        scale = scale * m * m
+    return scale
+
+
 def mla_latents(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
     """q_nope, q_pe (post-RoPE), the normed latent c and the shared
-    post-RoPE rope key k_pe of x: (B, S, D)."""
+    post-RoPE rope key k_pe of x: (B, S, D).  Ranges ``model/mla/q`` (the
+    query, through its latent where the config has one) and
+    ``model/mla/latent``."""
     dc, dr, dn = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.nope_head_dim
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    q_nope, q_pe = q[..., :dn], q[..., dn:]
-    ckv = torch.einsum("bsd,dk->bsk", x, p["wdkv"])
-    c, k_pe = ckv[..., :dc], ckv[..., dc:]
-    c = apply_norm(p["kv_norm"], c, "rmsnorm")
-    sin, cos = rope_table(positions, dr, cfg.rope_theta)
-    q_pe = apply_rope(q_pe, sin, cos)
-    k_pe = apply_rope(k_pe[:, :, None, :], sin, cos)[:, :, 0, :]
+    sin, cos = rope_table(positions, dr, cfg.rope_theta, cfg.yarn)
+    with span("model/mla/q"):
+        if cfg.q_lora_rank:
+            cq = torch.einsum("bsd,dq->bsq", x, p["wdq"])
+            cq = apply_norm(p["q_norm"], cq, "rmsnorm")
+            q = torch.einsum("bsq,qhk->bshk", cq, p["wuq"])
+        else:
+            q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        q_nope, q_pe = q[..., :dn], apply_rope(q[..., dn:], sin, cos)
+    with span("model/mla/latent"):
+        ckv = torch.einsum("bsd,dk->bsk", x, p["wdkv"])
+        c, k_pe = ckv[..., :dc], ckv[..., dc:]
+        c = apply_norm(p["kv_norm"], c, "rmsnorm")
+        k_pe = apply_rope(k_pe[:, :, None, :], sin, cos)[:, :, 0, :]
     return q_nope, q_pe, c, k_pe
 
 
@@ -479,25 +567,31 @@ def mla_block(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     """Multi-head latent attention over a full sequence (train, prefill):
     K/V are decompressed per head and run through the flash kernel (train:
     ``train_attention``) at head dim ``nope + rope`` with V zero-padded to
-    it, then sliced back to ``v_head_dim``.  With ``return_kv`` the
-    post-RoPE latents (c, k_pe) come back for one-shot cache assembly.
-    Decode is ``mla_decode``."""
+    it, then sliced back to ``v_head_dim`` (range ``model/mla/core``), at
+    ``mla_softmax_scale``.  With ``return_kv`` the post-RoPE latents (c,
+    k_pe) come back for one-shot cache assembly.  Decode is
+    ``mla_decode``."""
     b, s, _ = x.shape
     h, dr = cfg.n_heads, cfg.rope_head_dim
     dn, dv = cfg.nope_head_dim, cfg.v_head_dim
     q_nope, q_pe, c, k_pe = mla_latents(p, x, cfg, positions)
-    k_nope = torch.einsum("btc,chn->bthn", c, p["wuk"])
-    v = torch.einsum("btc,chv->bthv", c, p["wuv"])
-    k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, dr)],
-                       dim=-1)
-    q_full = torch.cat([q_nope, q_pe], dim=-1)
-    v_full = F.pad(v, (0, dn + dr - dv))
-    if train:
-        out = train_attention(q_full, k_full, v_full, cfg, causal=True)
-    else:
-        out = attention_core(q_full, k_full, v_full, causal=True)
-    out = out[..., :dv]
-    y = torch.einsum("bshv,hvd->bsd", out, p["wo"])
+    # without YaRN the kernel's own 1 / sqrt(D), D = nope + rope
+    scale = {"scale": mla_softmax_scale(cfg)} if cfg.yarn else {}
+    with span("model/mla/core"):
+        k_nope = torch.einsum("btc,chn->bthn", c, p["wuk"])
+        v = torch.einsum("btc,chv->bthv", c, p["wuv"])
+        k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, dr)],
+                           dim=-1)
+        q_full = torch.cat([q_nope, q_pe], dim=-1)
+        v_full = F.pad(v, (0, dn + dr - dv))
+        if train:
+            out = train_attention(q_full, k_full, v_full, cfg, causal=True,
+                                  **scale)
+        else:
+            out = attention_core(q_full, k_full, v_full, causal=True,
+                                 **scale)
+    with span("model/mla/out"):
+        y = torch.einsum("bshv,hvd->bsd", out[..., :dv], p["wo"])
     return y, ((c, k_pe) if return_kv else None)
 
 
@@ -509,14 +603,27 @@ def mla_decode(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     attends in the absorbed form, W_uk folded into q, over its slot's
     positions ``0 .. cache_index[i]``.  The products take bf16 operands
     with f32 sums: the operands are widened to f32, whose products of bf16
-    values are exact, as the reference computes them off the TPU."""
-    dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
+    values are exact, as the reference computes them off the TPU.  Ranges
+    ``model/mla/q`` (with the absorption), ``latent``, ``core`` (the
+    cache write and the attention) and ``out``; ``positions_read`` counts
+    the latent positions the core reads, every row's whole cache."""
     q_nope, q_pe, c, k_pe = mla_latents(p, x, cfg, positions)
-    q_c = torch.einsum("bshn,chn->bshc", q_nope, p["wuk"])
-    core = functools.partial(_mla_core, scale=1.0 / math.sqrt(dn + dr))
-    o_c = cache_step(core, (q_c, q_pe, c, k_pe), cache, cache_index, slots)
-    out = torch.einsum("bshc,chv->bshv", o_c, p["wuv"].float()).to(x.dtype)
-    return torch.einsum("bshv,hvd->bsd", out, p["wo"])
+    with span("model/mla/q"):
+        q_c = torch.einsum("bshn,chn->bshc", q_nope, p["wuk"])
+    with span("model/mla/core"):
+        core = functools.partial(_mla_core, scale=mla_softmax_scale(cfg))
+        o_c = cache_step(core, (q_c, q_pe, c, k_pe), cache, cache_index,
+                         slots)
+    mla_decode.positions_read += q_c.shape[0] * cache["c"].shape[1]
+    with span("model/mla/out"):
+        out = torch.einsum("bshc,chv->bshv", o_c,
+                           p["wuv"].float()).to(x.dtype)
+        return torch.einsum("bshv,hvd->bsd", out, p["wo"])
+
+
+#: the latent positions ``mla_decode`` reads, rows times the cache's
+#: length a call and layer: counted from shapes, no device read
+host_counter(mla_decode, "positions_read")
 
 
 def _mla_core(q_c, q_pe, c, k_pe, cache, cache_index, rows, *, scale):
@@ -585,16 +692,22 @@ def cache_step(core, tokens: tuple, cache: dict, cache_index, slots):
 # ---------------------------------------------------------------------------------
 
 def init_moe(generator, cfg, *, lead: tuple = (), device=None) -> Params:
+    """The router over every routed expert (with the sigmoid router's
+    f32 correction bias ``router_bias``), the weights of the experts held
+    here (``cfg.experts_here``) and the shared experts."""
     d, f, e = cfg.d_model, cfg.d_expert, cfg.n_routed_experts
+    e_here = cfg.experts_here
 
     def mk(shape, axes, fan_in, dtype=cfg.dtype):
         return make_param(generator, shape, axes, lead=lead, fan_in=fan_in,
                           dtype=dtype, device=device)
 
     up = ("expert", "embed", "mlp")
-    p = {"router": mk((d, e), ("embed", "expert"), d, torch.float32),
-         "wi": mk((e, d, f), up, d), "wg": mk((e, d, f), up, d),
-         "wo": mk((e, f, d), ("expert", "mlp", "embed"), f)}
+    p = {"router": mk((d, e), ("embed", "expert"), d, torch.float32)}
+    if cfg.router_scoring == "sigmoid_noaux_tc":
+        p["router_bias"] = mk((e,), ("expert",), e, torch.float32)
+    p |= {"wi": mk((e_here, d, f), up, d), "wg": mk((e_here, d, f), up, d),
+          "wo": mk((e_here, f, d), ("expert", "mlp", "embed"), f)}
     if cfg.n_shared_experts:
         p["shared"] = init_mlp(generator, cfg,
                                d_ff=cfg.d_expert * cfg.n_shared_experts,
@@ -625,8 +738,12 @@ def moe_dispatch(idx: torch.Tensor, n_experts: int, capacity: int,
     flat = idx.reshape(-1)
     onehot = F.one_hot(flat, n_experts).to(torch.int32)
     if local is not None:
-        onehot = onehot * local.reshape(-1, 1)
-    pos = torch.cumsum(onehot, dim=0) - 1
+        # few experts a rank: a scan down each expert's column of (t*k,
+        # e) runs one thread a column, so each is scanned as a row
+        onehot = (onehot * local.reshape(-1, 1)).t().contiguous()
+        pos = (torch.cumsum(onehot, dim=1) - 1).t()
+    else:
+        pos = torch.cumsum(onehot, dim=0) - 1
     pos = torch.gather(pos, 1, flat[:, None])[:, 0]
     keep = pos < capacity
     if local is not None:
@@ -669,7 +786,10 @@ def moe_expert_compute(x, idx, gates, wi, wg, wo, *, capacity: int,
         buf = torch.zeros((e, capacity + 1, d), dtype=dtype, device=x.device)
         src = x.repeat_interleave(k, dim=0).to(dtype)
         src = torch.where(keep[:, None], src, torch.zeros_like(src))
-        buf.index_put_((flat, slot), src, accumulate=True)
+        # with a share of the experts most assignments are other ranks':
+        # all go to one waste slot, whose duplicates the accumulating
+        # scatter serialises, so they are written (zeros over zeros)
+        buf.index_put_((flat, slot), src, accumulate=local is None)
         buf = buf[:, :capacity]
     with span("model/moe/experts"):             # SwiGLU, gated gather back
         hg = silu(torch.einsum("ecd,edf->ecf", buf, wg))
@@ -681,13 +801,43 @@ def moe_expert_compute(x, idx, gates, wi, wg, wo, *, capacity: int,
         return (gathered.float() * w[:, None]).reshape(t, k, d).sum(dim=1)
 
 
+def grouped_topk(biased: torch.Tensor, cfg) -> torch.Tensor:
+    """``noaux_tc``'s choice (..., e) -> (..., k) expert ids: the experts
+    fall into ``cfg.router_groups`` groups of consecutive ids, a group
+    scores the sum of its two best ``biased`` scores, the
+    ``router_topk_groups`` best groups are kept and the top k of their
+    experts chosen."""
+    *lead, e = biased.shape
+    groups = biased.reshape(*lead, cfg.router_groups, e // cfg.router_groups)
+    group_score = groups.topk(2, dim=-1).values.sum(-1)
+    kept = torch.topk(group_score, cfg.router_topk_groups, dim=-1).indices
+    mask = torch.zeros_like(group_score, dtype=torch.bool).scatter_(
+        -1, kept, True)
+    masked = groups.masked_fill(~mask[..., None], float("-inf"))
+    return torch.topk(masked.reshape(*lead, e), cfg.moe_top_k,
+                      dim=-1).indices
+
+
 def moe_route(p: Params, x: torch.Tensor, cfg):
-    """The f32 router: softmax over experts, top-k, gates renormalised.
-    Returns (probs (g,s,e), gates (g,s,k), idx (g,s,k))."""
+    """The f32 router.  "softmax": softmax over experts, top-k;
+    "sigmoid_noaux_tc": sigmoid scores, the experts ``grouped_topk`` picks
+    from the scores plus ``router_bias``, gated by the unbiased scores.
+    Gates renormalised, then times ``cfg.router_scale``.  Returns (probs
+    (g,s,e), gates (g,s,k), idx (g,s,k))."""
     logits = torch.einsum("gsd,de->gse", x.float(), p["router"])
-    probs = torch.softmax(logits, dim=-1)
-    gates, idx = torch.topk(probs, cfg.moe_top_k, dim=-1)
+    if cfg.router_scoring == "softmax":
+        probs = torch.softmax(logits, dim=-1)
+        gates, idx = torch.topk(probs, cfg.moe_top_k, dim=-1)
+    elif cfg.router_scoring == "sigmoid_noaux_tc":
+        probs = torch.sigmoid(logits)
+        idx = grouped_topk(probs + p["router_bias"], cfg)
+        gates = torch.gather(probs, -1, idx)
+    else:
+        raise ValueError(f"{cfg.name}: unknown router_scoring "
+                         f"{cfg.router_scoring!r}")
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    if cfg.router_scale != 1.0:
+        gates = gates * cfg.router_scale
     return probs, gates, idx
 
 
@@ -720,6 +870,15 @@ def moe_block(p: Params, x: torch.Tensor, cfg, *,
     Switch-style load-balancing loss.  ``no_drop``: capacity is every
     token, so decode routes exactly.
 
+    A share (``cfg.experts_held``): the router routes over every expert,
+    the experts held here compute their part of the result
+    (``moe_expert_compute``'s ``e_offset`` / ``e_total``) at the capacity
+    reckoned over all of them, the shared experts run whole; what the
+    other experts would add is left out, as on one rank of an
+    expert-parallel deployment without its exchange.  A decode call adds
+    the assignments that fall to the held experts to
+    ``decode_held_assignments`` on the device.
+
     Expert parallel (``set_moe_mesh``, the experts divide the model axis):
     a ``local_map`` over the mesh, the reference's ``shard_map``.  The
     expert weights are ``Shard(0)`` on the model axis and the tokens
@@ -739,16 +898,27 @@ def moe_block(p: Params, x: torch.Tensor, cfg, *,
         ) / (g * s * k)
         aux = e * torch.sum(me * ce)
     n_model = _ep_degree(e)
+    if n_model and cfg.experts_held:
+        raise NotImplementedError(f"{cfg.name}: a share of the experts "
+                                  f"under an expert-parallel mesh")
     if not n_model:
         t = g * s
         capacity = moe_capacity(t, cfg, capacity_factor=capacity_factor,
                                 no_drop=no_drop)
+        share = {}
+        if cfg.experts_held:
+            share = dict(e_offset=cfg.experts_offset, e_total=e)
         if no_drop:
             moe_block.decode_assignments += t * k
-            moe_block.decode_slots += e * capacity
+            moe_block.decode_slots += cfg.experts_here * capacity
+            if share:
+                off = cfg.experts_offset
+                moe_block.decode_held_assignments.add(
+                    ((idx >= off) & (idx < off + cfg.experts_held)).sum())
         y = moe_expert_compute(x.reshape(t, d), idx.reshape(t, k),
                                gates.reshape(t, k), p["wi"], p["wg"],
-                               p["wo"], capacity=capacity, dtype=cfg.dtype)
+                               p["wo"], capacity=capacity, dtype=cfg.dtype,
+                               **share)
     else:
         y = _moe_expert_parallel(p, x, idx, gates, cfg, n_model,
                                  capacity_factor=capacity_factor,
@@ -760,11 +930,14 @@ def moe_block(p: Params, x: torch.Tensor, cfg, *,
     return y, aux
 
 
-#: on one device, the routed assignments (t * k) and the expert slots
-#: computed (e * capacity) of every ``no_drop`` (decode) call: counted from
-#: shapes, no device read
+#: on one device, the routed assignments (t * k, over every expert) and the
+#: expert slots computed (the experts held here times the capacity) of
+#: every ``no_drop`` (decode) call: counted from shapes, no device read
 host_counter(moe_block, "decode_assignments")
 host_counter(moe_block, "decode_slots")
+#: under a share, the decode assignments that fall to the held experts: a
+#: count of the data, tallied on the device (``kernels.DeviceTally``)
+device_counter(moe_block, "decode_held_assignments")
 
 
 def _moe_expert_parallel(p: Params, x, idx, gates, cfg, n_model: int, *,

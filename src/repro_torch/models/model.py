@@ -41,7 +41,7 @@ from repro_torch.kernels import note_loop
 from repro_torch.obs import span
 from repro_torch.training.optimizer import tree_map
 
-from .decode_graph import DecodeGraphs, is_dtensor
+from .decode_graph import DecodeGraphs, PrefillGraphs, is_dtensor
 from .layers import (Params, apply_norm, gather_for_use, init_norm,
                      make_param, record_axes, shard_hint)
 from .transformer import (block_apply, check_supported, encoder_config,
@@ -422,12 +422,17 @@ class Model(nn.Module):
     On the card ``decode_step`` is recorded once as a CUDA graph for each
     engine's caches and width and replayed (``decode_graphs``, a
     ``decode_graph.DecodeGraphs``; inside its ``eager()`` every call runs
-    eagerly, for a tool that patches the functions a decode call runs)."""
+    eagerly, for a tool that patches the functions a decode call runs).
+    Where ``cfg.prefill_graphs`` is set, ``prefill`` of a token-only prompt
+    is recorded too, for that many prompt shapes (``prefill_graphs``, a
+    ``decode_graph.PrefillGraphs``)."""
 
     #: decode calls of every model in the process, by how they ran:
     #: "eager", "captured" (recorded as a CUDA graph, then replayed once)
     #: and "replayed"
     decode_calls = {"eager": 0, "captured": 0, "replayed": 0}
+    #: prefill calls of every model in the process, by how they ran
+    prefill_calls = {"eager": 0, "captured": 0, "replayed": 0}
 
     def __init__(self, cfg, *, params: Optional[dict] = None, seed: int = 0,
                  device: DeviceLike = None):
@@ -446,9 +451,12 @@ class Model(nn.Module):
             self.register_buffer(name, t)
         self.params = params
         super().train(False)
+        plain = not any(is_dtensor(t) for _, t in _flatten(params))
         self.decode_graphs = DecodeGraphs(
-            functools.partial(decode_step, params, cfg),
-            not any(is_dtensor(t) for _, t in _flatten(params)))
+            functools.partial(decode_step, params, cfg), plain)
+        self.prefill_graphs = PrefillGraphs(
+            functools.partial(prefill, params, cfg), plain,
+            cfg.prefill_graphs)
 
     def train(self, mode: bool = True) -> "Model":
         """Train mode: every parameter requires grad (False: none does)."""
@@ -466,8 +474,12 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int, *, frames=None,
                 patch_embeds=None):
-        return prefill(self.params, self.cfg, tokens, max_len, frames=frames,
-                       patch_embeds=patch_embeds)
+        if frames is not None or patch_embeds is not None:
+            return prefill(self.params, self.cfg, tokens, max_len,
+                           frames=frames, patch_embeds=patch_embeds)
+        *out, how = self.prefill_graphs(tokens, max_len)
+        Model.prefill_calls[how] += 1
+        return tuple(out)
 
     @torch.no_grad()
     def decode_step(self, caches, tokens, index, slots=None, max_len=0):

@@ -294,7 +294,10 @@ def _same_dtype(jdtype, tdtype) -> bool:
 @pytest.mark.parametrize("arch", list(ARCH_IDS))
 def test_config_matches_reference(arch):
     """The port's config of every arch equals the reference's field by
-    field (dtypes mapped by name), and so does its parameter count."""
+    field (dtypes mapped by name), and so does its parameter count.  The
+    fields the port adds (``PORT_FIELDS``) come after the reference's, each
+    at its default, under which the arch runs as the reference runs it."""
+    from repro_torch.configs.base import PORT_FIELDS
     ref, ours = all_configs()[arch], get_config(arch)
     for f in dataclasses.fields(ref):
         a, b = getattr(ref, f.name), getattr(ours, f.name)
@@ -303,6 +306,9 @@ def test_config_matches_reference(arch):
         else:
             assert a == b, (f.name, a, b)
     assert [f.name for f in dataclasses.fields(ours)] == \
-        [f.name for f in dataclasses.fields(ref)]
+        [f.name for f in dataclasses.fields(ref)] + list(PORT_FIELDS)
+    for f in dataclasses.fields(ours):
+        if f.name in PORT_FIELDS:
+            assert getattr(ours, f.name) == f.default, f.name
     assert ours.param_count() == ref.param_count()
     assert ours.active_param_count() == ref.active_param_count()
